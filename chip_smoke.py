@@ -5,22 +5,37 @@
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. device  — the card's name and power limit; TF32 matmuls must be off.
-2. build   — nvcc builds the port's CUDA kernels from tpdlp_torch/csrc.
-3. kernels — each kernel against its plain PyTorch twin at the main path's
+2. build   — nvcc builds the port's CUDA kernels from tpdlp_torch/csrc
+             (one nvcc per source, all started together); then, as a
+             yardstick, the same sources through one serial nvcc call.
+3. kernels — each kernel against its plain PyTorch twin at its path's
              shapes (and a few edge shapes): error, bit-identical repeats,
              and the times of the kernel, the twin and the one PyTorch call
              that computes the same function (CUDA events, median of 25
              single launches, each after a 256 MB write that evicts L2).
-4. solve   — the main path: mittelmann-s and mittelmann-l at full size in
+             band_matvec runs on the 100k banded instance's K and K' slabs
+             and on random slabs at windows of 128 and 2048; beside it a
+             torch CSR product of the same K is timed as a yardstick.
+4. solve   — the dense path: mittelmann-s and mittelmann-l at full size in
              fp32, tol 1e-4, Ruiz + adaptive steps + primal-weight update
              (the settings of the JAX package's bench runner); one warm-up
              solve, then seeds 0-2.  Checks Solved, the kernel launch count
              against the count the code implies, and recomputes the
              residuals of the returned (x, y) on the host in fp64.
-5. profile — one mittelmann-s solve under torch.profiler (device activity
-             only): the device's busy share of the wall time, and the
-             device time by kernel.  A measurement, not a check.
-6. cross   — maros-class on the card in fp32 and on the CPU in fp64.
+5. band    — the band path: the 100k x 100k banded instance of
+             tpdlp_torch/bench/band_scale.py at full size (its dense K
+             would take 40 GB), matrix_format="band", the same settings,
+             seed 0.  The same checks, and its peak device memory.
+6. profile — one mittelmann-s solve, and the band instance over two
+             bounded KKT budgets, under torch.profiler (device activity
+             only): the device's busy share of the wall time and the device
+             time by kernel; for the band path also the difference of the
+             two solves, i.e. the steady loop, whose band_matvec launches
+             (the wrapper's counter) must equal the count the code
+             implies; the trace's band_matvec events are printed beside.
+7. cross   — maros-class on the card in fp32 and on the CPU in fp64; a
+             banded instance small enough to hold dense, on the card as
+             band and as dense in fp32 and on the CPU as band in fp64.
 
 Then the kernel summary line, the card's `nvidia-smi` name and power limit,
 and last {"ok": true, "device": {...}}.  Needs one CUDA device; exits
@@ -33,6 +48,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,6 +63,17 @@ KERNEL_SHAPES = [(27, 51), (2000, 700), (257, 2049), (16, 9000),
 HEADLINE_SHAPE = (2000, 5000)
 FP64_SHAPE = (2000, 5000)
 TIMED_LAUNCHES = 25
+#: The band path's instance (tpdlp_torch/bench/band_scale.py's defaults):
+#: n, m_ineq, m_eq, bandwidth.
+BAND_100K = (100_000, 75_000, 25_000, 105)
+#: Random band slabs (m, n, WB) beside the instance's: the narrowest and the
+#: widest window the layout allows, m and n not multiples of 128.
+BAND_RANDOM = [(5001, 777, 128), (30001, 40003, 2048)]
+#: KKT budgets of the band path's two profiled solves; their difference is
+#: the steady loop, without the operator build and the preprocessing.
+BAND_PROFILE_KKT = (2000, 4000)
+#: The band cross check's instance (small enough to hold dense).
+BAND_CROSS = (8192, 4096, 2048, 65)
 
 #: Data-sheet rates by card: HBM bytes/s, fp32 and fp64 flop/s outside the
 #: tensor cores (NVIDIA data sheets; SXM unless the name says otherwise).
@@ -76,6 +103,19 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def serial_build_seconds(K) -> float:
+    """Seconds of the same build as one serial nvcc call over every source
+    (a yardstick for the library's build, which runs one nvcc per source
+    side by side)."""
+    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        subprocess.run(
+            [K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", f"{tmp}/serial.so",
+             *[str(K.CSRC / s) for s in K.SOURCES]],
+            capture_output=True, check=True, timeout=600)
+        return time.perf_counter() - t0
 
 
 def time_launches(fn, flush: torch.Tensor) -> float:
@@ -147,6 +187,107 @@ def kernels_phase(dev, rates):
     return rows
 
 
+def _band_bound(m, n, ngroups, R, WB, item, rates, dtype):
+    """(bound_ms, bound_by) of one band product: the live slab rows, x,
+    the live starts and y moved once, against 2 flops per live slab
+    element."""
+    bw, f32_peak, f64_peak = rates
+    rows = min(m, ngroups * R)
+    bytes_ = (rows * WB + n + m) * item + 4 * -(-rows // R)
+    t_bytes = bytes_ / bw * 1e3
+    peak = f32_peak if dtype == torch.float32 else f64_peak
+    t_ops = 2 * rows * WB / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _random_band(m, n, WB, dtype, gen, dev):
+    ngroups = -(-(-(-m // 128)) // 8) * 8
+    n_pad = -(-n // 128) * 128
+    starts = torch.randint(0, (n_pad - WB) // 128 + 1, (ngroups,),
+                           generator=gen, device=dev) * 128
+    slabs = torch.randn((ngroups, 128, WB), generator=gen, dtype=dtype,
+                        device=dev)
+    return slabs, starts.to(torch.int32)
+
+
+def _torch_csr(K, dtype, dev):
+    K = sp.csr_matrix(K)
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(K.indptr.astype(np.int64), device=dev),
+        torch.as_tensor(K.indices.astype(np.int64), device=dev),
+        torch.as_tensor(K.data, dtype=dtype, device=dev),
+        size=K.shape)
+
+
+def band_kernels_phase(dev, rates, p_band):
+    """band_matvec against its twin: on the 100k instance's K and K' slabs
+    (fp32 and fp64) and on random slabs at windows of 128 and 2048."""
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.ops.band import BandOp, band_windows
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    op32 = BandOp.from_scipy(p_band.K, torch.float32, device=dev)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        op = op32 if dtype == torch.float32 else op32.astype(dtype)
+        cases.append(("100k K", op.fwd.slabs, op.fwd.starts, op.fwd.m,
+                      op.fwd.n, p_band.K, dtype))
+        cases.append(("100k K'", op.bwd.slabs, op.bwd.starts, op.bwd.m,
+                      op.bwd.n, p_band.K.T, dtype))
+        for m, n, WB in BAND_RANDOM:
+            slabs, starts = _random_band(m, n, WB, dtype, gen, dev)
+            cases.append((f"random WB={WB}", slabs, starts, m, n, None,
+                          dtype))
+    del op
+    rows = []
+    for label, slabs, starts, m, n, Kh, dtype in cases:
+        x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
+        y = K.band_matvec(slabs, starts, x, m, n)
+        y2 = K.band_matvec(slabs, starts, x, m, n)
+        plain = K.band_matvec_plain(slabs, starts, x, m, n)
+        torch.cuda.synchronize()
+        ngroups, R, WB = slabs.shape
+        eps = 6e-8 if dtype == torch.float32 else 1.2e-16
+        tol = eps * WB ** 0.5 * 30
+        rel = float(((y - plain).abs() / (1 + plain.abs())).max())
+        abs_err = float((y - plain).abs().max())
+        if not rel < tol:
+            raise AssertionError(
+                f"band_matvec {label} {dtype}: rel err {rel} >= {tol}")
+        if not torch.equal(y, y2):
+            raise AssertionError(f"band_matvec {label}: repeats differ")
+        bound, bound_by = _band_bound(m, n, ngroups, R, WB,
+                                      slabs.element_size(), rates, dtype)
+        win = band_windows(starts, x, n, WB)[..., None]
+        row = {
+            "case": label, "slabs": [ngroups, R, WB], "m": m, "n": n,
+            "dtype": str(dtype).replace("torch.", ""),
+            "kernel_ms": time_launches(
+                lambda: K.band_matvec(slabs, starts, x, m, n), flush),
+            "plain_ms": time_launches(
+                lambda: K.band_matvec_plain(slabs, starts, x, m, n), flush),
+            "library_ms": time_launches(lambda: torch.bmm(slabs, win),
+                                        flush),
+            "csr_ms": None,
+            "bound_ms": bound, "bound_by": bound_by,
+            "max_rel_err": rel, "max_abs_err": abs_err, "tol": tol,
+        }
+        if Kh is not None:
+            csr = _torch_csr(Kh, dtype, dev)
+            row["csr_ms"] = time_launches(lambda: csr @ x, flush)
+            row["nnz"] = int(csr.values().numel())
+            del csr
+        emit("kernels", kernel="band_matvec", **row)
+        rows.append(row)
+        del x, y, y2, plain, win
+    del cases, flush, op32
+    torch.cuda.empty_cache()
+    return rows
+
+
 def host_residuals(problem, x, y):
     """Relative primal residual, dual residual and gap of (x, y) on the
     unscaled problem, in fp64 on the host (residuals.py's definitions)."""
@@ -180,7 +321,7 @@ def host_residuals(problem, x, y):
 
 
 def solve_phase(dev):
-    from tpdlp_torch import SolverConfig, Status, solve
+    from tpdlp_torch import SolverConfig, solve
     from tpdlp_torch.bench.suite import build_suite
     from tpdlp_torch.ops import _kernels as K
 
@@ -219,20 +360,82 @@ def solve_phase(dev):
                 **check,
             }
             emit("solve", **row)
-            if r.status != Status.SOLVED:
-                raise AssertionError(f"{p.name} seed {seed}: {r.status}")
+            _check_solution(f"{p.name} seed {seed}", r, check)
             if launches <= 0 or launches != expect:
                 raise AssertionError(
                     f"{p.name}: {launches} kernel launches, expected "
                     f"{expect}")
-            for key in ("rel_primal", "rel_dual", "rel_gap"):
-                if not check[key] <= 10 * TOL:
-                    raise AssertionError(f"{p.name}: {key} {check[key]}")
-            if check["bound_violation"] > 10 * TOL or check[
-                    "min_ineq_dual"] < 0:
-                raise AssertionError(f"{p.name}: infeasible point {check}")
             runs.append(row)
-    return runs, dict(K.launches)
+    if K.launches["band_matvec"]:
+        raise AssertionError("the dense path launched band_matvec")
+    return runs, K.launches["dense_matvec"]
+
+
+def _check_solution(name, r, check):
+    from tpdlp_torch import Status
+
+    if r.status != Status.SOLVED:
+        raise AssertionError(f"{name}: {r.status}")
+    for key in ("rel_primal", "rel_dual", "rel_gap"):
+        if not check[key] <= 10 * TOL:
+            raise AssertionError(f"{name}: {key} {check[key]}")
+    if check["bound_violation"] > 10 * TOL or check["min_ineq_dual"] < 0:
+        raise AssertionError(f"{name}: infeasible point {check}")
+
+
+def band_phase(dev, p):
+    """The band path at full size: one solve of the 100k banded instance,
+    kernel launches counted from 0 just before it."""
+    from tpdlp_torch import SolverConfig, solve
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.ops.band import band_stored_elems
+
+    cfg = SolverConfig(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
+                       adaptive=True, primal_weight_update=True,
+                       time_limit=600)
+    stored = band_stored_elems(p.K) * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem_before = torch.cuda.memory_allocated(dev)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    r = solve(p, cfg, dtype=torch.float32, device=dev, seed=0,
+              matrix_format="band")
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    T = cfg.restart_period
+    if r.iterations % T:
+        raise AssertionError("blocked cycles leave k % T == 0")
+    expect = 2 * r.iterations + 2 * (r.iterations // T) + (
+        2 * cfg.power_iters + 1) + 2
+    check = host_residuals(p, r.x, r.y)
+    row = {
+        "instance": p.name, "shape": list(p.shape), "nnz": int(p.K.nnz),
+        "band_stored_mb": stored / 1e6, "seed": 0,
+        "status": r.status_string, "k": r.iterations, "n": r.restarts,
+        "j": r.kkt_passes, "objective": r.objective,
+        "solve_time_s": r.solve_time, "wall_s": wall,
+        "it_per_s": r.iterations / wall,
+        "launches": launches["band_matvec"], "launches_expected": expect,
+        "dense_launches": launches["dense_matvec"],
+        "mem_before_gb": mem_before / 1e9, "peak_mem_gb": peak / 1e9,
+        **check,
+    }
+    emit("band", **row)
+    _check_solution(p.name, r, check)
+    if launches["band_matvec"] <= 0 or launches["band_matvec"] != expect:
+        raise AssertionError(
+            f"{p.name}: {launches['band_matvec']} band_matvec launches, "
+            f"expected {expect}")
+    if launches["dense_matvec"]:
+        raise AssertionError("the band path launched dense_matvec")
+    # K and K' slabs twice (the caller's and Ruiz's scaled copy), plus
+    # vectors and the build's triplets: far below one dense K (40 GB).
+    if peak - mem_before > 3 * stored:
+        raise AssertionError(
+            f"{p.name}: peak {peak / 1e9} GB above 3 copies of the slabs")
+    return row, launches["band_matvec"]
 
 
 def _busy_us(intervals) -> float:
@@ -245,40 +448,86 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_phase(dev):
-    """Where the main path's time goes: one mittelmann-s solve (seed 0)
-    under torch.profiler, device activity only.  Reports the device's busy
-    share of the solve's wall time and the device time by kernel."""
+def _profile_solve(dev, p, kernel, max_kkt, **solve_kw):
+    """One solve (seed 0) under torch.profiler, device activity only: the
+    device's busy share of the solve's wall time and the device time by
+    kernel, `kernel`'s share of the busy time among them."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpdlp_torch import SolverConfig, solve
-    from tpdlp_torch.bench.suite import build_suite
+    from tpdlp_torch.ops import _kernels as K
 
-    (p,) = build_suite(("large",), names=("mittelmann-s",))
-    cfg = SolverConfig(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
+    cfg = SolverConfig(tol=TOL, max_kkt=max_kkt, scaling="ruiz",
                        adaptive=True, primal_weight_update=True)
     torch.cuda.synchronize()
+    before = K.launches[kernel]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r = solve(p, cfg, dtype=torch.float32, device=dev, seed=0)
+        r = solve(p, cfg, dtype=torch.float32, device=dev, seed=0,
+                  **solve_kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    counted = K.launches[kernel] - before
+    spans, by_name, kernel_events = [], {}, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        kernel_events += kernel in e.name
     busy = _busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    matvec_us = sum(v for k, v in by_name.items() if "dense_matvec" in k)
-    emit("profile", instance=p.name, seed=0, k=r.iterations,
+    kernel_us = sum(v for k, v in by_name.items() if kernel in k)
+    emit("profile", instance=p.name, seed=0, status=r.status_string,
+         k=r.iterations, j=r.kkt_passes, max_kkt=max_kkt,
          wall_ms=wall_us / 1e3, device_events=len(spans),
          device_busy_ms=busy / 1e3,
          device_busy_share=busy / wall_us if spans else None,
-         dense_matvec_ms=matvec_us / 1e3,
-         dense_matvec_share_of_busy=matvec_us / busy if busy else None,
+         kernel=kernel, kernel_launches=counted, kernel_events=kernel_events,
+         trace_complete=kernel_events == counted,
+         kernel_ms=kernel_us / 1e3,
+         kernel_share_of_busy=kernel_us / busy if busy else None,
          top_kernels_ms=[[k[:80], v / 1e3] for k, v in top])
+    if not kernel_events:
+        raise AssertionError(f"profile: no {kernel} event in the trace")
+    return {"k": r.iterations, "wall_us": wall_us, "busy_us": busy,
+            "kernel_us": kernel_us, "kernel_events": kernel_events,
+            "launches": counted, "restart_period": cfg.restart_period}
+
+
+def profile_phase(dev, p_band):
+    """Where the time goes: one mittelmann-s solve, and the band path over
+    a bounded KKT budget."""
+    from tpdlp_torch.bench.suite import build_suite
+
+    (p,) = build_suite(("large",), names=("mittelmann-s",))
+    _profile_solve(dev, p, "dense_matvec", MAX_KKT)
+    a, b = (_profile_solve(dev, p_band, "band_matvec", kkt,
+                           matrix_format="band")
+            for kkt in BAND_PROFILE_KKT)
+    dk = b["k"] - a["k"]
+    wall, busy = b["wall_us"] - a["wall_us"], b["busy_us"] - a["busy_us"]
+    # K2 launches in the steady loop by the wrapper's counter, held to the
+    # count the code implies (2 per iteration + 2 per restart check).  The
+    # trace's own event count is printed beside it: CUPTI may drop or
+    # carry over records between profiler sessions, so the time per launch
+    # divides traced time by traced events, which stay paired.
+    launches = b["launches"] - a["launches"]
+    events = b["kernel_events"] - a["kernel_events"]
+    kern = b["kernel_us"] - a["kernel_us"]
+    expect = 2 * dk + 2 * (dk // a["restart_period"])
+    emit("profile_loop", instance=p_band.name, k=dk, wall_ms=wall / 1e3,
+         ms_per_iteration=wall / dk / 1e3 if dk else None,
+         device_busy_ms=busy / 1e3,
+         device_busy_share=busy / wall if wall > 0 else None,
+         kernel="band_matvec", kernel_launches=launches,
+         kernel_launches_expected=expect, kernel_events=events,
+         kernel_us_per_launch=kern / events if events else None,
+         kernel_share_of_busy=kern / busy if busy > 0 else None)
+    if launches != expect:
+        raise AssertionError(
+            f"profile: {launches} band_matvec launches in the steady loop, "
+            f"expected {expect}")
 
 
 def cross_phase(dev):
@@ -300,6 +549,53 @@ def cross_phase(dev):
         raise AssertionError("maros-class: card and CPU disagree")
 
 
+def band_cross_phase(dev):
+    """A banded instance small enough to hold dense: band and dense on the
+    card in fp32, band on the CPU in fp64.  Same status, objectives within
+    5*tol."""
+    from tpdlp_torch import SolverConfig, Status, generate_banded_lp, solve
+
+    n, mi, me, bw = BAND_CROSS
+    p = generate_banded_lp(n=n, m_ineq=mi, m_eq=me, bandwidth=bw, seed=2)
+    cfg = SolverConfig(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
+                       adaptive=True, primal_weight_update=True)
+    rb = solve(p, cfg, dtype=torch.float32, device=dev,
+               matrix_format="band")
+    rd = solve(p, cfg, dtype=torch.float32, device=dev,
+               matrix_format="dense")
+    rc = solve(p, cfg, dtype=torch.float64, device="cpu",
+               matrix_format="band")
+    lim = 5 * TOL * (1 + abs(rc.objective))
+    diffs = {"band_vs_cpu": abs(rb.objective - rc.objective),
+             "dense_vs_cpu": abs(rd.objective - rc.objective),
+             "band_vs_dense": abs(rb.objective - rd.objective)}
+    emit("band_cross", instance=p.name, shape=list(p.shape),
+         statuses=[rb.status_string, rd.status_string, rc.status_string],
+         objectives=[rb.objective, rd.objective, rc.objective],
+         k=[rb.iterations, rd.iterations, rc.iterations], limit=lim,
+         **diffs)
+    if not (rb.status == rd.status == rc.status == Status.SOLVED
+            and max(diffs.values()) <= lim):
+        raise AssertionError(f"{p.name}: band, dense and CPU disagree")
+
+
+def _kernel_entry(name, source, replaces, launches, rows, head):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["dtype"] == "float32"),
+        "ms": head["kernel_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -316,32 +612,45 @@ def main() -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count())
     rates = card_rates(name)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = K.build()
-    emit("build", seconds=time.perf_counter() - t0, library=str(lib))
+    seconds = time.perf_counter() - t0
+    emit("build", seconds=seconds, library=str(lib),
+         serial_seconds=serial_build_seconds(K))
 
-    kernel_rows = kernels_phase(dev, rates)
-    runs, launches = solve_phase(dev)
-    profile_phase(dev)
+    from tpdlp_torch import generate_banded_lp
+
+    n, mi, me, bw = BAND_100K
+    t0 = time.perf_counter()
+    p_band = generate_banded_lp(n=n, m_ineq=mi, m_eq=me, bandwidth=bw,
+                                seed=0)
+    emit("band_instance", instance=p_band.name, nnz=int(p_band.K.nnz),
+         seconds=time.perf_counter() - t0)
+
+    dense_rows = kernels_phase(dev, rates)
+    band_rows = band_kernels_phase(dev, rates, p_band)
+    _, dense_launches = solve_phase(dev)
+    _, band_launches = band_phase(dev, p_band)
+    profile_phase(dev, p_band)
     cross_phase(dev)
+    band_cross_phase(dev)
 
-    head = next(r for r in kernel_rows if tuple(r["shape"]) == HEADLINE_SHAPE
-                and r["dtype"] == "float32")
-    print(json.dumps({"kernels": [{
-        "name": "dense_matvec",
-        "route": "cuda",
-        "source": "tpdlp_torch/csrc/dense_matvec.cu",
-        "replaces": "tpdlp/ops/pallas_dense.py:77",
-        "launches": launches["dense_matvec"],
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows
-                           if r["dtype"] == "float32"),
-        "ms": head["kernel_ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": list(HEADLINE_SHAPE),
-    }]}), flush=True)
+    dense_head = next(r for r in dense_rows
+                      if tuple(r["shape"]) == HEADLINE_SHAPE
+                      and r["dtype"] == "float32")
+    band_head = next(r for r in band_rows if r["case"] == "100k K"
+                     and r["dtype"] == "float32")
+    emit("total", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": [
+        {**_kernel_entry("dense_matvec", "tpdlp_torch/csrc/dense_matvec.cu",
+                         "tpdlp/ops/pallas_dense.py:77", dense_launches,
+                         dense_rows, dense_head),
+         "shape": list(HEADLINE_SHAPE)},
+        {**_kernel_entry("band_matvec", "tpdlp_torch/csrc/band_matvec.cu",
+                         "tpdlp/ops/band.py:160", band_launches, band_rows,
+                         band_head),
+         "csr_ms": band_head["csr_ms"], "shape": band_head["slabs"]},
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,7 +15,13 @@ import torch
 import tpdlp_torch
 from tpdlp_torch.bench.suite import build_suite
 from tpdlp_torch.ops import _kernels
-from tpdlp_torch.ops._kernels import dense_matvec, dense_matvec_plain
+from tpdlp_torch.ops._kernels import (
+    band_matvec,
+    band_matvec_plain,
+    dense_matvec,
+    dense_matvec_plain,
+)
+from tpdlp_torch.ops.band import BandOp
 from tpdlp_torch.ops.exact_dense import ExactDenseOp, pad_rows
 
 torch.set_num_threads(2)
@@ -92,5 +98,89 @@ def test_solve_on_card_agrees_with_cpu(card):
     rg = tpdlp_torch.solve(p, cfg, dtype=torch.float64)
     assert _kernels.launches["dense_matvec"] > before
     rc = tpdlp_torch.solve(p, cfg, dtype=torch.float64, device="cpu")
+    assert rg.status == rc.status == tpdlp_torch.Status.SOLVED
+    assert abs(rg.objective - rc.objective) <= 1e-9 * (1 + abs(rc.objective))
+
+
+def _random_band(m, n, WB, dtype, gen, device):
+    """Random slabs (ngroups, 128, WB) and 128-aligned starts with the band
+    layout's invariants (ngroups a multiple of 8, start + WB <= n_pad)."""
+    ngroups = -(-(-(-m // 128)) // 8) * 8
+    n_pad = -(-n // 128) * 128
+    starts = torch.randint(0, (n_pad - WB) // 128 + 1, (ngroups,),
+                           generator=gen, device=device) * 128
+    slabs = torch.randn((ngroups, 128, WB), generator=gen, dtype=dtype,
+                        device=device)
+    return slabs, starts.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_band_kernel_matches_plain_on_card(card, dtype):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(2)
+    for m, n, WB in [(1, 1, 128), (300, 260, 384), (5001, 777, 128),
+                     (20003, 3001, 2048), (100000, 100000, 384)]:
+        slabs, starts = _random_band(m, n, WB, dtype, gen, card)
+        x = torch.randn((n,), generator=gen, dtype=dtype, device=card)
+        before = _kernels.launches["band_matvec"]
+        y = band_matvec(slabs, starts, x, m, n)
+        assert _kernels.launches["band_matvec"] == before + 1
+        ref = band_matvec_plain(slabs, starts, x, m, n)
+        assert y.shape == (m,) and y.dtype == dtype
+        assert float(((y - ref).abs() / (1 + ref.abs())).max()) < _tol(
+            WB, dtype)
+        assert torch.equal(y, band_matvec(slabs, starts, x, m, n))
+
+
+def test_band_kernel_rejects_what_it_does_not_take(card):
+    slabs = torch.zeros((8, 128, 128), device=card)
+    starts = torch.zeros(8, dtype=torch.int32, device=card)
+    x = torch.zeros(100, device=card)
+    before = _kernels.launches["band_matvec"]
+    with pytest.raises(TypeError, match="int32"):
+        band_matvec(slabs, starts.long(), x, 1000, 100)
+    with pytest.raises(TypeError):
+        band_matvec(slabs.double(), starts, x, 1000, 100)
+    with pytest.raises(ValueError, match="window"):
+        band_matvec(torch.zeros((8, 128, 126), device=card), starts, x, 1000,
+                    100)
+    with pytest.raises(ValueError, match="row groups"):
+        band_matvec(slabs, starts, x, 1025, 100)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        band_matvec(slabs, starts, torch.zeros(100), 1000, 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        band_matvec(slabs.transpose(1, 2).contiguous().transpose(1, 2),
+                    starts, x, 1000, 100)
+    assert _kernels.launches["band_matvec"] == before
+
+
+def test_band_operator_products_run_the_kernel(card):
+    p = tpdlp_torch.generate_banded_lp(n=700, m_ineq=300, m_eq=200,
+                                       bandwidth=33, seed=3)
+    op = BandOp.from_scipy(p.K, torch.float64)
+    assert op.device.type == "cuda"
+    before = dict(_kernels.launches)
+    y = op.mv(torch.ones(700, dtype=torch.float64, device=card))
+    kty = op.rmv(torch.ones(500, dtype=torch.float64, device=card))
+    assert _kernels.launches["band_matvec"] == before["band_matvec"] + 2
+    assert _kernels.launches["dense_matvec"] == before["dense_matvec"]
+    K = torch.as_tensor(p.K.toarray(), device=card)
+    torch.testing.assert_close(y, K.sum(1), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(kty, K.sum(0), rtol=1e-12, atol=1e-12)
+
+
+def test_band_solve_on_card_agrees_with_cpu(card):
+    """A small band solve in fp64 on the card (kernel) and on the CPU
+    (twin): same status, objective to 1e-9."""
+    p = tpdlp_torch.generate_banded_lp(n=768, m_ineq=384, m_eq=192,
+                                       bandwidth=33, seed=4)
+    cfg = tpdlp_torch.SolverConfig(tol=1e-6, scaling="ruiz", adaptive=False,
+                                   primal_weight_update=True)
+    before = _kernels.launches["band_matvec"]
+    rg = tpdlp_torch.solve(p, cfg, dtype=torch.float64,
+                           matrix_format="band")
+    assert _kernels.launches["band_matvec"] > before
+    rc = tpdlp_torch.solve(p, cfg, dtype=torch.float64, device="cpu",
+                           matrix_format="band")
     assert rg.status == rc.status == tpdlp_torch.Status.SOLVED
     assert abs(rg.objective - rc.objective) <= 1e-9 * (1 + abs(rc.objective))

@@ -169,6 +169,11 @@ def test_build_targets_hopper_and_tracks_sources():
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR
     assert path.name.startswith("libtpdlp_torch_")
+    replaces = {
+        "dense_matvec.cu": "tpdlp/ops/pallas_dense.py::_matvec_kernel",
+        "band_matvec.cu": "tpdlp/ops/band.py::_band_kernel",
+    }
+    assert set(_kernels.SOURCES) == set(replaces)
     for src in _kernels.SOURCES:
         text = (_kernels.CSRC / src).read_text()
-        assert "tpdlp/ops/pallas_dense.py::_matvec_kernel" in text
+        assert replaces[src] in text

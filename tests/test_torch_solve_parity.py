@@ -177,7 +177,6 @@ def test_result_surface_equals_jax(jax_b0):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(matrix_format="band"), 12),
     (dict(matrix_format="sparse"), 13),
     (dict(matrix_format="auto"), 14),
     (dict(presolve="cpp"), 18),
@@ -195,6 +194,17 @@ def test_unported_options_raise(kw, item):
     p = _SUITE["afiro-class"]
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         tpdlp_torch.solve(p, device="cpu", **kw)
+
+
+def test_band_format_rejects_unstructured():
+    """matrix_format="band" on a K that is not band-like raises the JAX
+    package's ValueError (tests/test_band.py's counterpart)."""
+    p = tpdlp.generate_feasible_lp(n=4000, m_ineq=100, m_eq=40,
+                                   density=0.05, seed=0)
+    with pytest.raises(ValueError, match="band-like"):
+        tpdlp.solve(p, tpdlp.SolverConfig(), matrix_format="band")
+    with pytest.raises(ValueError, match="band-like"):
+        tpdlp_torch.solve(p, device="cpu", matrix_format="band")
 
 
 def test_escalation_reroute_raises_on_cuda_only():

@@ -1,5 +1,5 @@
-"""Synthetic planted-feasible LP generator (a copy of
-tpdlp/io/generator.py::generate_feasible_lp).
+"""Synthetic planted-feasible LP generators (copies of
+tpdlp/io/generator.py::generate_feasible_lp and ::generate_banded_lp).
 
 numpy/scipy code only, kept here so that this package never imports the JAX
 package: the same arguments and seed give the same problem, byte for byte.
@@ -87,4 +87,46 @@ def generate_feasible_lp(
     return LPProblem(
         c=c, K=K, q=q, m_ineq=m_ineq, l=l, u=u,
         name=f"synth_feasible_n{n}_m{m_ineq + m_eq}_s{seed}",
+    )
+
+
+def generate_banded_lp(
+    n: int = 1024,
+    m_ineq: int = 512,
+    m_eq: int = 256,
+    bandwidth: int = 65,
+    seed: int = 0,
+) -> LPProblem:
+    """Feasible LP whose stacked K = [G; A] is banded.
+
+    The band runs along the scaled diagonal of the stacked matrix (row i's
+    nonzeros sit around column i * n / m), so the band-slab operator
+    (tpdlp_torch.ops.band.BandOp) applies: every 128-row group's column
+    span stays within one narrow window.  Same planted-point feasibility
+    construction as `generate_feasible_lp`.
+    """
+    rng = np.random.default_rng(seed)
+    m = m_ineq + m_eq
+    half = bandwidth // 2
+    centers = np.round(np.arange(m) * (n - 1) / max(1, m - 1)).astype(int)
+    offs = np.arange(-half, half + 1)
+    rows = np.repeat(np.arange(m), offs.size)
+    cols = (centers[:, None] + offs[None, :]).ravel()
+    keep = (cols >= 0) & (cols < n)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.standard_normal(rows.size)
+    K = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+
+    x_star = rng.uniform(-5, 5, size=n)
+    Kx = K @ x_star
+    q = np.concatenate([
+        Kx[:m_ineq] - rng.uniform(0.1, 5.0, size=m_ineq),
+        Kx[m_ineq:],
+    ])
+    l = np.clip(x_star - rng.uniform(1, 5, size=n), -1e4, None)
+    u = np.clip(x_star + rng.uniform(1, 5, size=n), None, 1e4)
+    c = rng.standard_normal(n)
+    return LPProblem(
+        c=c, K=K, q=q, m_ineq=m_ineq, l=l, u=u,
+        name=f"synth_banded_n{n}_m{m}_bw{bandwidth}_s{seed}",
     )

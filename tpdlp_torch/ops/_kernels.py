@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels: build, ctypes binding, wrappers, plain twins.
 
-Kernels live in `tpdlp_torch/csrc/*.cu` and are compiled by `nvcc` into one
-shared library with a plain C interface, at the first call that needs them,
-into `build/tpdlp_torch/` at the root of the checkout (ignored by git).  The
+Kernels live in `tpdlp_torch/csrc/*.cu`.  At the first call that needs
+them, one `nvcc` per source compiles it (all started together), and the
+objects are linked into one shared library with a plain C interface, in
+`build/tpdlp_torch/` at the root of the checkout (ignored by git).  The
 library's file name carries a hash of the sources and flags, so an edited
 source is rebuilt and concurrent processes never load a half-written file.
 
@@ -31,17 +32,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdlp_torch"
-SOURCES = ("dense_matvec.cu",)
+SOURCES = ("dense_matvec.cu", "band_matvec.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 #: Row strides of matrices handed to the kernels are multiples of this many
 #: elements, so 16-byte vector loads stay aligned (4 fp32 / 2 fp64 per load).
 ROW_ALIGN = 4
 
-launches = {"dense_matvec": 0}
+launches = {"dense_matvec": 0, "band_matvec": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -75,24 +76,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtpdlp_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise on the first that fails, and
+    leave none running."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}\n{err}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+
+
 def build() -> Path:
     """Compile the kernels (if not yet built) and return the library path."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 
@@ -107,6 +122,12 @@ def _load():
             for fn in (lib.tpdlp_dense_matvec_f32,
                        lib.tpdlp_dense_matvec_f64):
                 fn.argtypes = args
+                fn.restype = ctypes.c_int
+            band_args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            for fn in (lib.tpdlp_band_matvec_f32, lib.tpdlp_band_matvec_f64):
+                fn.argtypes = band_args
                 fn.restype = ctypes.c_int
             lib.tpdlp_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tpdlp_cuda_error_string.restype = ctypes.c_char_p
@@ -189,4 +210,99 @@ def dense_matvec(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                   stream)
     _check(code, "dense_matvec launch")
     launches["dense_matvec"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K2: band-slab matvec (replaces tpdlp/ops/band.py::_band_kernel)
+# ---------------------------------------------------------------------------
+
+#: Shared memory a block may take without opting in: the kernel stages one
+#: window of x there, so WB * itemsize must fit.
+_MAX_WINDOW_BYTES = 48 * 1024
+
+
+def band_matvec_plain(slabs: torch.Tensor, starts: torch.Tensor,
+                      x: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """y = M x for band slabs, in slabs' dtype: the plain PyTorch twin of
+    the band_matvec kernel, with the JAX `matvec_xla` arithmetic (gather
+    each group's window x[start_g : start_g + WB], zero past n, multiply by
+    the slab, sum over the window, keep the first m rows).  On the CPU in
+    blocks of groups."""
+    ngroups, R, WB = slabs.shape
+    col = starts.long()[:, None] + torch.arange(WB, device=x.device)
+    win = torch.where(col < n, x[col.clamp(max=n - 1)], x.new_zeros(()))
+    groups = max(1, _PLAIN_CPU_BLOCK // max(1, R * WB))
+    if slabs.device.type != "cpu" or groups >= ngroups:
+        y = (slabs * win[:, None, :]).sum(dim=2)
+    else:
+        y = torch.cat([(slabs[i:i + groups] * win[i:i + groups, None, :])
+                       .sum(dim=2) for i in range(0, ngroups, groups)])
+    return y.reshape(-1)[:m]
+
+
+def band_matvec(slabs: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
+                m: int, n: int) -> torch.Tensor:
+    """y (m,) = M x for the band slabs of an (m, n) matrix M: slabs
+    (ngroups, R, WB), starts (ngroups,) int32, x (n,).
+
+    CPU tensors take `band_matvec_plain`.  CUDA tensors launch the
+    hand-written kernel (csrc/band_matvec.cu) on the current stream; the
+    call does not synchronise."""
+    tensors = (slabs, starts, x)
+    if all(t.device.type == "cpu" for t in tensors):
+        return band_matvec_plain(slabs, starts, x, m, n)
+    if slabs.device.type != "cuda" or any(t.device != slabs.device
+                                          for t in tensors):
+        raise ValueError(
+            f"band_matvec: slabs on {slabs.device}, starts on "
+            f"{starts.device}, x on {x.device}; all must be on the same "
+            "CUDA device (or all on the CPU)"
+        )
+    if slabs.dtype not in (torch.float32, torch.float64) or (
+            x.dtype != slabs.dtype):
+        raise TypeError(
+            f"band_matvec: dtypes {slabs.dtype}/{x.dtype}; the kernel takes "
+            "float32 or float64, the same for slabs and x"
+        )
+    if starts.dtype != torch.int32:
+        raise TypeError(f"band_matvec: starts dtype {starts.dtype}, "
+                        "expected int32")
+    if slabs.dim() != 3 or starts.shape != (slabs.shape[0],) or (
+            x.shape != (n,)):
+        raise ValueError(
+            f"band_matvec: shapes slabs {tuple(slabs.shape)}, starts "
+            f"{tuple(starts.shape)}, x {tuple(x.shape)} for n = {n}"
+        )
+    ngroups, R, WB = slabs.shape
+    if not 0 <= m <= ngroups * R or n < 1:
+        raise ValueError(
+            f"band_matvec: m = {m}, n = {n} outside the {ngroups} x {R} "
+            "row groups"
+        )
+    if WB % ROW_ALIGN or WB * slabs.element_size() > _MAX_WINDOW_BYTES:
+        raise ValueError(
+            f"band_matvec: window {WB} must be a multiple of {ROW_ALIGN} "
+            f"and at most {_MAX_WINDOW_BYTES} bytes"
+        )
+    if not (slabs.is_contiguous() and starts.is_contiguous()
+            and x.is_contiguous()):
+        raise ValueError("band_matvec: slabs, starts and x must be "
+                         "contiguous")
+    if slabs.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("band_matvec: slabs and x must be 16-byte aligned")
+    if max(ngroups * R, n, WB) >= 2**31:
+        raise ValueError("band_matvec: dimension exceeds int32")
+    y = torch.empty(m, dtype=slabs.dtype, device=slabs.device)
+    if m == 0:
+        return y
+    lib = _load()
+    fn = (lib.tpdlp_band_matvec_f32 if slabs.dtype == torch.float32
+          else lib.tpdlp_band_matvec_f64)
+    stream = torch.cuda.current_stream(slabs.device).cuda_stream
+    with torch.cuda.device(slabs.device):
+        code = fn(slabs.data_ptr(), starts.data_ptr(), x.data_ptr(),
+                  y.data_ptr(), m, n, R, WB, stream)
+    _check(code, "band_matvec launch")
+    launches["band_matvec"] += 1
     return y

@@ -25,20 +25,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpdlp_torch.device import resolve_device
 from tpdlp_torch.ops.exact_dense import ExactDenseOp
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another.  Raises when CUDA is asked for (or defaulted to) and absent —
-    the port never falls back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "tpdlp_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 @dataclasses.dataclass
@@ -249,8 +237,10 @@ def to_device_arrays(problem, dtype=torch.float32, *, device=None):
         mat = _vec(K, dtype, dev)
     op = ExactDenseOp.build(mat)
     del mat
-    c = _vec(problem.c, dtype, dev)
-    q = _vec(problem.q, dtype, dev)
-    l = _vec(problem.l, dtype, dev)
-    u = _vec(problem.u, dtype, dev)
-    return op, c, q, l, u
+    return (op, *device_vectors(problem, dtype, dev))
+
+
+def device_vectors(problem, dtype, device):
+    """(c, q, l, u) of a host LPProblem as device tensors."""
+    return tuple(_vec(v, dtype, device)
+                 for v in (problem.c, problem.q, problem.l, problem.u))

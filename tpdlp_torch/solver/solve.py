@@ -1,5 +1,6 @@
 """Public solve API: preprocessing, chunked device loop, result assembly
-(counterpart of tpdlp/solver/solve.py, its single-device dense branch).
+(counterpart of tpdlp/solver/solve.py, its single-device dense and band
+branches).
 
 The device runs blocked restart cycles; the host reads (status, j) once per
 cycle and checks the wall clock between chunks of KKT passes, on the JAX
@@ -18,10 +19,12 @@ import numpy as np
 import torch
 
 from tpdlp_torch.config import SolverConfig, Status
+from tpdlp_torch.device import resolve_device
+from tpdlp_torch.ops.band import BandOp
 from tpdlp_torch.problem import (
     as_problem,
     device_problem,
-    resolve_device,
+    device_vectors,
     to_device_arrays,
 )
 from tpdlp_torch.scaling.ruiz import scale_problem
@@ -104,22 +107,43 @@ def eta_omega_of(pb, seed: int, cfg: SolverConfig, om0=None):
     return eta0, omega0
 
 
-def _device_arrays(problem, dtype, dev, op_cache):
+def build_device_operator(problem, dtype, matrix_format: str = "dense",
+                          device=None):
+    """Single-device operator + (c, q, l, u) for the chosen layout.
+
+    The band layout builds its operator from K's triplets and never
+    materialises the dense matrix: it exists for instances whose dense
+    form does not fit on the device."""
+    dev = resolve_device(device)
+    if matrix_format == "dense":
+        return to_device_arrays(problem, dtype, device=dev)
+    if matrix_format == "band":
+        op = BandOp.from_scipy(problem.K, dtype, device=dev)
+        if op is None:
+            raise ValueError(
+                "matrix_format='band': K is not band-like (some "
+                "row-group's column span exceeds the window "
+                "budget); use 'auto' or 'sparse'"
+            )
+        return (op, *device_vectors(problem, dtype, dev))
+    raise _format_error(matrix_format)
+
+
+def _device_arrays(problem, dtype, dev, op_cache, matrix_format):
     """(op, c, q, l, u) on the device; the operator comes from `op_cache`
-    when it holds one for this K's shape, dtype and device."""
-    key = ("dense", str(dtype), str(dev), problem.K.shape)
+    when it holds one for this layout, dtype, device and K's shape."""
+    key = (matrix_format, str(dtype), str(dev), problem.K.shape)
     if op_cache is not None and key in op_cache:
-        vecs = (torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
-                for v in (problem.c, problem.q, problem.l, problem.u))
-        return (op_cache[key], *vecs)
-    op, c, q, l, u = to_device_arrays(problem, dtype, device=dev)
+        return (op_cache[key], *device_vectors(problem, dtype, dev))
+    op, c, q, l, u = build_device_operator(problem, dtype, matrix_format,
+                                           dev)
     if op_cache is not None:
         op_cache[key] = op
     return op, c, q, l, u
 
 
-def _prepare(problem, dtype, dev, op_cache, ineq_mask, seed, x0, y0, om0,
-             cfg: SolverConfig):
+def _prepare(problem, dtype, dev, op_cache, matrix_format, ineq_mask, seed,
+             x0, y0, om0, cfg: SolverConfig):
     """Device arrays, scaling, problem assembly, power-iteration stepsize,
     primal weight and state init.  Returns (pb, state, t_arrays), the last
     the perf_counter time at which the arrays were on the device.
@@ -127,7 +151,8 @@ def _prepare(problem, dtype, dev, op_cache, ineq_mask, seed, x0, y0, om0,
     The unscaled operator lives only in this frame (and in `op_cache`), so
     it is freed once scaled, before the power iteration builds K': the
     device holds at most two copies of K at any time."""
-    op, c, q, l, u = _device_arrays(problem, dtype, dev, op_cache)
+    op, c, q, l, u = _device_arrays(problem, dtype, dev, op_cache,
+                                    matrix_format)
     t_arrays = time.perf_counter()
     op_s, c_s, q_s, l_s, u_s, d_row, d_col = scale_problem(
         op, c, q, l, u,
@@ -166,6 +191,10 @@ def _extract(pb, st):
     return x, y, torch.dot(pb.c0, x)
 
 
+#: Operator layouts not ported yet, by ROADMAP.md item.
+_FORMAT_ITEMS = {"sparse": 13, "auto": 14}
+
+
 def _unported(what: str, item: int):
     return NotImplementedError(
         f"{what} is not ported to tpdlp_torch yet (ROADMAP.md queue 1 "
@@ -173,16 +202,19 @@ def _unported(what: str, item: int):
     )
 
 
+def _format_error(matrix_format: str) -> Exception:
+    if matrix_format in _FORMAT_ITEMS:
+        return _unported(f"matrix_format={matrix_format!r}",
+                         _FORMAT_ITEMS[matrix_format])
+    return ValueError(f"unknown matrix_format: {matrix_format!r}")
+
+
 def _check_ported(cfg: SolverConfig, mesh, matrix_format, presolve,
                   checkpoint_path, resume):
     if mesh is not None:
         raise _unported("solve(mesh=...)", 21)
-    if matrix_format != "dense":
-        items = {"band": 12, "sparse": 13, "auto": 14}
-        if matrix_format not in items:
-            raise ValueError(f"unknown matrix_format: {matrix_format!r}")
-        raise _unported(f"matrix_format={matrix_format!r}",
-                        items[matrix_format])
+    if matrix_format not in ("dense", "band"):
+        raise _format_error(matrix_format)
     if presolve != "off":
         raise _unported(f"presolve={presolve!r}", 18)
     if checkpoint_path is not None or resume:
@@ -226,7 +258,8 @@ def solve(
     """Solve a standard-form LP with restarted PDHG.
 
     `device`: None means CUDA (raises when there is none); pass "cpu" to
-    run on the CPU.  `dtype`: None means fp32 on CUDA and fp64 on the CPU.
+    run on the CPU.  `matrix_format`: "dense" (ExactDenseOp) or "band"
+    (BandOp; ValueError when K is not band-like).  `dtype`: None means fp32 on CUDA and fp64 on the CPU.
     `problem`: an LPProblem of this package or any object with its fields
     (the JAX package's LPProblem included).
 
@@ -273,8 +306,9 @@ def solve(
             np.array(y0) if y0 is not None else np.zeros(m),
             dtype=dtype, device=dev)
 
-    pb, st, t_arrays = _prepare(problem, dtype, dev, op_cache, mask, seed,
-                                x0t, y0t, om0, cfg)
+    pb, st, t_arrays = _prepare(problem, dtype, dev, op_cache,
+                                matrix_format, mask, seed, x0t, y0t, om0,
+                                cfg)
     # Never run a chunk when the wall clock was spent by the time the
     # arrays reached the device (where the JAX package checks it).
     budget_spent = t_arrays - start + time_used >= cfg.time_limit
