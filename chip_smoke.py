@@ -7,12 +7,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device  — the card's name and power limit; TF32 matmuls must be off.
 2. build   — nvcc builds the port's CUDA kernels from tpdlp_torch/csrc
              (one nvcc per source, all started together); then, as a
-             yardstick, the same sources through one serial nvcc call.
+             yardstick, the same sources through one serial nvcc call; and
+             one `nvcc -Xptxas -v` compile per source, whose registers,
+             static shared memory and spills per kernel are printed.
 3. kernels — each kernel against its plain PyTorch twin at its path's
              shapes (and a few edge shapes): error, bit-identical repeats,
              and the times of the kernel, the twin and the one PyTorch call
-             that computes the same function (CUDA events, median of 25
-             single launches, each after a 256 MB write that evicts L2).
+             that computes the same function, by CUDA events:
+             cold — median of 25 single launches, each after a read-only
+                    pass over a 256 MB buffer written once, so that L2
+                    holds only clean lines and no write-back of an earlier
+                    launch lands inside the timed window;
+             loop — K and K' launched back to back, alternating, as a PDHG
+                    iteration issues them, between two events, over the
+                    launch count; the launches are queued behind a spin
+                    of the card, so the loop times the card alone.
+             K1 at 2000x5000 and its `torch.mv` are also timed after a
+             256 MB write instead, which leaves dirty lines in L2, to show
+             what their write-back costs a launch.  A `sum` over the same
+             M, and over the 100k banded K's slabs, is timed cold beside
+             them (`read_ms`): PyTorch's own pass that reads those bytes
+             once, a yardstick for the rate the kernels stream them at.
              band_matvec runs on the 100k banded instance's K and K' slabs
              and on random slabs at windows of 128 and 2048; beside it a
              torch CSR product of the same K is timed as a yardstick.
@@ -45,6 +60,7 @@ non-zero without one.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +79,13 @@ KERNEL_SHAPES = [(27, 51), (2000, 700), (257, 2049), (16, 9000),
 HEADLINE_SHAPE = (2000, 5000)
 FP64_SHAPE = (2000, 5000)
 TIMED_LAUNCHES = 25
+#: K/K' pairs per loop timing (2 launches each).
+LOOP_PAIRS = 50
+#: Cycles the card spins before a loop timing (about 10 ms at 2 GHz, above
+#: the host's time to queue the loop's launches).
+LOOP_SPIN_CYCLES = 20_000_000
+#: Dense (K, K') shape pairs timed as a loop.
+LOOP_SHAPES = [((2000, 5000), (5000, 2000)), ((8000, 20000), (20000, 8000))]
 #: The band path's instance (tpdlp_torch/bench/band_scale.py's defaults):
 #: n, m_ineq, m_eq, bandwidth.
 BAND_100K = (100_000, 75_000, 25_000, 105)
@@ -118,13 +141,65 @@ def serial_build_seconds(K) -> float:
         return time.perf_counter() - t0
 
 
-def time_launches(fn, flush: torch.Tensor) -> float:
-    """Median ms of TIMED_LAUNCHES single launches, L2 evicted before each."""
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+_KERNEL_NAME = re.compile(r"\d([a-z_]+_kernel)I([fd])E")
+
+
+def ptxas_report(K) -> list:
+    """Registers, static shared memory and spills of every kernel, from one
+    `nvcc -Xptxas -v` compile per source (side by side).  The ring of
+    shared-memory stages is dynamic and not counted here."""
+    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as tmp:
+        cmds = [[K._nvcc(), *K.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 f"{tmp}/{s}.o", str(K.CSRC / s)] for s in K.SOURCES]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [proc.communicate(timeout=600)[0] for proc in procs]
+    if any(proc.returncode for proc in procs):
+        raise RuntimeError("nvcc -Xptxas -v failed:\n" + "\n".join(logs))
+    out, cur = [], None
+    for line in "\n".join(logs).splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            k = _KERNEL_NAME.search(m.group(1))
+            name = m.group(1) if k is None else (
+                f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}>")
+            cur = {"kernel": name}
+            out.append(cur)
+        elif cur is not None and (m := _PTXAS_SPILL.search(line)):
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        elif cur is not None and (m := _PTXAS_USED.search(line)):
+            cur["registers"] = int(m.group(1))
+            smem = _PTXAS_SMEM.search(line)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    if not out:
+        raise RuntimeError("nvcc -Xptxas -v reported no kernel")
+    return out
+
+
+def evict_l2(flush: torch.Tensor) -> None:
+    """Read the whole flush buffer (written once, 5x L2): L2 then holds
+    only its clean lines."""
+    flush.view(torch.int64).sum()
+
+
+def time_launches(fn, flush: torch.Tensor, dirty: bool = False) -> float:
+    """Median ms of TIMED_LAUNCHES single launches, L2 evicted before each
+    by a read-only pass (`dirty`: by a 256 MB write instead, which leaves
+    up to an L2 of dirty lines to be written back inside the timed
+    window)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(TIMED_LAUNCHES):
-        flush.zero_()
+        if dirty:
+            flush.zero_()
+        else:
+            evict_l2(flush)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -135,17 +210,38 @@ def time_launches(fn, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
+def time_loop(fn_k, fn_kt) -> float:
+    """ms per launch of LOOP_PAIRS back-to-back (K, K') launch pairs between
+    two events, as a PDHG iteration issues them.  The card first spins for
+    LOOP_SPIN_CYCLES, so that the host has queued every launch before the
+    first event: the loop times the card, not the wrappers' host cost."""
+    fn_k()
+    fn_kt()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(LOOP_SPIN_CYCLES)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(LOOP_PAIRS):
+        fn_k()
+        fn_kt()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (2 * LOOP_PAIRS)
+
+
 def kernels_phase(dev, rates):
     from tpdlp_torch.ops import _kernels as K
     from tpdlp_torch.ops.exact_dense import pad_rows
 
     bw, f32_peak, f64_peak = rates
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    rows = []
+    rows, kept = [], {}
     cases = [(s, torch.float32) for s in KERNEL_SHAPES]
     cases.append((FP64_SHAPE, torch.float64))
+    looped = {s for pair in LOOP_SHAPES for s in pair}
     for (m, n), dtype in cases:
         M = pad_rows(torch.randn((m, n), generator=gen, dtype=dtype,
                                  device=dev))[:, :n]
@@ -179,10 +275,31 @@ def kernels_phase(dev, rates):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_rel_err": rel, "max_abs_err": abs_err, "tol": tol,
         }
+        if (m, n) == HEADLINE_SHAPE and dtype == torch.float32:
+            row["kernel_ms_dirty_flush"] = time_launches(
+                lambda: K.dense_matvec(M, x), flush, dirty=True)
+            row["library_ms_dirty_flush"] = time_launches(
+                lambda: torch.mv(M, x), flush, dirty=True)
+            row["read_ms"] = time_launches(lambda: M.sum(), flush)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         emit("kernels", kernel="dense_matvec", **row)
         rows.append(row)
+        if (m, n) in looped and dtype == torch.float32:
+            kept[(m, n)] = (M, x, row)
         del M, x, y, y2, plain
-    del flush
+    for sk, skt in LOOP_SHAPES:
+        (M, x, row), (Mt, xt, row_t) = kept[sk], kept[skt]
+        loop = {
+            "kernel_loop_ms": time_loop(lambda: K.dense_matvec(M, x),
+                                        lambda: K.dense_matvec(Mt, xt)),
+            "library_loop_ms": time_loop(lambda: torch.mv(M, x),
+                                         lambda: torch.mv(Mt, xt)),
+        }
+        emit("kernels_loop", kernel="dense_matvec", shapes=[sk, skt],
+             bound_ms=(row["bound_ms"] + row_t["bound_ms"]) / 2, **loop)
+        row.update(loop)
+        row_t.update(loop)
+    del kept, flush
     torch.cuda.empty_cache()
     return rows
 
@@ -226,7 +343,7 @@ def band_kernels_phase(dev, rates, p_band):
     from tpdlp_torch.ops import _kernels as K
     from tpdlp_torch.ops.band import BandOp, band_windows
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
     op32 = BandOp.from_scipy(p_band.K, torch.float32, device=dev)
@@ -242,7 +359,7 @@ def band_kernels_phase(dev, rates, p_band):
             cases.append((f"random WB={WB}", slabs, starts, m, n, None,
                           dtype))
     del op
-    rows = []
+    rows, kept = [], {}
     for label, slabs, starts, m, n, Kh, dtype in cases:
         x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
         y = K.band_matvec(slabs, starts, x, m, n)
@@ -275,14 +392,34 @@ def band_kernels_phase(dev, rates, p_band):
             "bound_ms": bound, "bound_by": bound_by,
             "max_rel_err": rel, "max_abs_err": abs_err, "tol": tol,
         }
+        row["bound_share"] = bound / row["kernel_ms"]
+        if label == "100k K" and dtype == torch.float32:
+            row["read_ms"] = time_launches(lambda: slabs.sum(), flush)
+        csr = None
         if Kh is not None:
             csr = _torch_csr(Kh, dtype, dev)
             row["csr_ms"] = time_launches(lambda: csr @ x, flush)
             row["nnz"] = int(csr.values().numel())
-            del csr
+            kept[(label, dtype)] = (slabs, starts, x, m, n, win, csr, row)
         emit("kernels", kernel="band_matvec", **row)
         rows.append(row)
-        del x, y, y2, plain, win
+        del x, y, y2, plain, win, csr
+    for dtype in (torch.float32, torch.float64):
+        a, b = kept.pop(("100k K", dtype)), kept.pop(("100k K'", dtype))
+        loop = {
+            "kernel_loop_ms": time_loop(
+                lambda: K.band_matvec(*a[:5]), lambda: K.band_matvec(*b[:5])),
+            "library_loop_ms": time_loop(lambda: torch.bmm(a[0], a[5]),
+                                         lambda: torch.bmm(b[0], b[5])),
+            "csr_loop_ms": time_loop(lambda: a[6] @ a[2],
+                                     lambda: b[6] @ b[2]),
+        }
+        emit("kernels_loop", kernel="band_matvec", case="100k K, K'",
+             dtype=str(dtype).replace("torch.", ""),
+             bound_ms=(a[7]["bound_ms"] + b[7]["bound_ms"]) / 2, **loop)
+        a[7].update(loop)
+        b[7].update(loop)
+        del a, b
     del cases, flush, op32
     torch.cuda.empty_cache()
     return rows
@@ -486,6 +623,8 @@ def _profile_solve(dev, p, kernel, max_kkt, **solve_kw):
          kernel=kernel, kernel_launches=counted, kernel_events=kernel_events,
          trace_complete=kernel_events == counted,
          kernel_ms=kernel_us / 1e3,
+         kernel_us_per_launch=kernel_us / kernel_events if kernel_events
+         else None,
          kernel_share_of_busy=kernel_us / busy if busy else None,
          top_kernels_ms=[[k[:80], v / 1e3] for k, v in top])
     if not kernel_events:
@@ -593,6 +732,8 @@ def _kernel_entry(name, source, replaces, launches, rows, head):
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "loop_ms": head["kernel_loop_ms"],
+        "library_loop_ms": head["library_loop_ms"],
     }
 
 
@@ -616,7 +757,7 @@ def main() -> int:
     lib = K.build()
     seconds = time.perf_counter() - t0
     emit("build", seconds=seconds, library=str(lib),
-         serial_seconds=serial_build_seconds(K))
+         serial_seconds=serial_build_seconds(K), ptxas=ptxas_report(K))
 
     from tpdlp_torch import generate_banded_lp
 

@@ -9,6 +9,7 @@ Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode; the CPU tests hold the twins against the JAX package).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,23 +43,49 @@ def _tol(n, dtype):
     return eps * max(4, n) ** 0.5 * 30
 
 
+def _check_dense(M, x):
+    """One launch per call, the twin's values within tolerance, and
+    bit-identical repeats."""
+    before = _kernels.launches["dense_matvec"]
+    y = dense_matvec(M, x)
+    assert _kernels.launches["dense_matvec"] == before + 1
+    ref = dense_matvec_plain(M, x)
+    assert y.shape == (M.shape[0],) and y.dtype == M.dtype
+    assert bool(torch.isfinite(y).all())
+    rel = float(((y - ref).abs() / (1 + ref.abs())).max())
+    assert rel < _tol(M.shape[1], M.dtype), rel
+    assert torch.equal(y, dense_matvec(M, x))
+    assert _kernels.launches["dense_matvec"] == before + 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matches_plain_on_card(card, dtype):
     gen = torch.Generator(device=card)
     gen.manual_seed(0)
+    # The path's shapes, and the edges of the kernel's tiles: rows past a
+    # tile with cols % 4 != 0 (2001 x 5003), a row longer than any stage
+    # (3 x 70001), short rows several to a warp (20000 x 8).
     for m, n in [(27, 51), (1, 1), (257, 2049), (16, 9000), (2000, 5000),
-                 (5000, 2000)]:
+                 (5000, 2000), (2001, 5003), (3, 70001), (20000, 8)]:
         M = pad_rows(torch.randn((m, n), generator=gen, dtype=dtype,
                                  device=card))[:, :n]
-        x = torch.randn((n,), generator=gen, dtype=dtype, device=card)
-        before = _kernels.launches["dense_matvec"]
-        y = dense_matvec(M, x)
-        assert _kernels.launches["dense_matvec"] == before + 1
-        ref = dense_matvec_plain(M, x)
-        assert y.shape == (m,) and y.dtype == dtype
-        assert float(((y - ref).abs() / (1 + ref.abs())).max()) < _tol(n,
-                                                                       dtype)
-        assert torch.equal(y, dense_matvec(M, x))  # bit-identical repeats
+        _check_dense(M, torch.randn((n,), generator=gen, dtype=dtype,
+                                    device=card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_never_reads_padding_on_card(card, dtype):
+    """NaN in the row stride's padding and past the end of x: the kernel
+    may copy a row up to its stride but uses no value at or past cols."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(6)
+    for m, n, ld in [(37, 5003, 5012), (2000, 1, 8), (9, 4097, 4104)]:
+        full = torch.full((m, ld), float("nan"), dtype=dtype, device=card)
+        full[:, :n] = torch.randn((m, n), generator=gen, dtype=dtype,
+                                  device=card)
+        xbuf = torch.full((n + 8,), float("nan"), dtype=dtype, device=card)
+        xbuf[:n] = torch.randn((n,), generator=gen, dtype=dtype, device=card)
+        _check_dense(full[:, :n], xbuf[:n])
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
@@ -114,22 +141,31 @@ def _random_band(m, n, WB, dtype, gen, device):
     return slabs, starts.to(torch.int32)
 
 
+def _check_band(slabs, starts, x, m, n):
+    before = _kernels.launches["band_matvec"]
+    y = band_matvec(slabs, starts, x, m, n)
+    assert _kernels.launches["band_matvec"] == before + 1
+    ref = band_matvec_plain(slabs, starts, x, m, n)
+    assert y.shape == (m,) and y.dtype == slabs.dtype
+    assert bool(torch.isfinite(y).all())
+    rel = float(((y - ref).abs() / (1 + ref.abs())).max())
+    assert rel < _tol(slabs.shape[2], slabs.dtype), rel
+    assert torch.equal(y, band_matvec(slabs, starts, x, m, n))
+    assert _kernels.launches["band_matvec"] == before + 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_band_kernel_matches_plain_on_card(card, dtype):
     gen = torch.Generator(device=card)
     gen.manual_seed(2)
+    # (100000, 100000, 384) has 782 row groups, several for each block of
+    # the persistent grid; (20003, 3001, 2048) holds the widest rows.
     for m, n, WB in [(1, 1, 128), (300, 260, 384), (5001, 777, 128),
                      (20003, 3001, 2048), (100000, 100000, 384)]:
         slabs, starts = _random_band(m, n, WB, dtype, gen, card)
-        x = torch.randn((n,), generator=gen, dtype=dtype, device=card)
-        before = _kernels.launches["band_matvec"]
-        y = band_matvec(slabs, starts, x, m, n)
-        assert _kernels.launches["band_matvec"] == before + 1
-        ref = band_matvec_plain(slabs, starts, x, m, n)
-        assert y.shape == (m,) and y.dtype == dtype
-        assert float(((y - ref).abs() / (1 + ref.abs())).max()) < _tol(
-            WB, dtype)
-        assert torch.equal(y, band_matvec(slabs, starts, x, m, n))
+        _check_band(slabs, starts, torch.randn((n,), generator=gen,
+                                               dtype=dtype, device=card),
+                    m, n)
 
 
 def test_band_kernel_rejects_what_it_does_not_take(card):
@@ -184,3 +220,37 @@ def test_band_solve_on_card_agrees_with_cpu(card):
                            matrix_format="band")
     assert rg.status == rc.status == tpdlp_torch.Status.SOLVED
     assert abs(rg.objective - rc.objective) <= 1e-9 * (1 + abs(rc.objective))
+
+
+@pytest.mark.parametrize("m,n,WB,dtype", [
+    (1000, 3001, 384, torch.float32),     # m % 128 != 0, n % 4 != 0
+    (20003, 4099, 2048, torch.float64),   # the widest row: one per stage
+    (3001, 2053, 128, torch.float32),     # the narrowest window
+])
+def test_band_kernel_edges_on_card(card, m, n, WB, dtype):
+    """Slab rows at or past m hold NaN and are never read; the last group's
+    window runs past n, where x's buffer holds NaN (x counts as zero)."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(7)
+    slabs, starts = _random_band(m, n, WB, dtype, gen, card)
+    n_pad = -(-n // 128) * 128
+    starts[-(-m // 128) - 1] = n_pad - WB
+    slabs.view(-1, WB)[m:] = float("nan")
+    xbuf = torch.full((n + 16,), float("nan"), dtype=dtype, device=card)
+    xbuf[:n] = torch.randn((n,), generator=gen, dtype=dtype, device=card)
+    _check_band(slabs, starts, xbuf[:n], m, n)
+
+
+def test_dense_solve_on_card_replays_bit_for_bit(card):
+    """mittelmann-s in fp32 on the card twice: the kernels' fixed reduction
+    order gives the same k and a bit-identical objective."""
+    (p,) = build_suite(("large",), names=("mittelmann-s",))
+    cfg = tpdlp_torch.SolverConfig(tol=1e-4, scaling="ruiz", adaptive=True,
+                                   primal_weight_update=True)
+    runs = [tpdlp_torch.solve(p, cfg, dtype=torch.float32, seed=0)
+            for _ in range(2)]
+    assert runs[0].status == tpdlp_torch.Status.SOLVED
+    assert runs[0].iterations == runs[1].iterations
+    assert runs[0].objective == runs[1].objective
+    assert np.array_equal(runs[0].x, runs[1].x)
+    assert np.array_equal(runs[0].y, runs[1].y)

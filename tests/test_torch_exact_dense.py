@@ -4,6 +4,8 @@ numpy), the LinOp contract against JAX's DenseOp, the padded layout,
 scale and astype.  The CUDA kernel itself runs only on the card (the
 `cuda` tests skip here; chip_smoke.py holds it against the twin there)."""
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,3 +179,15 @@ def test_build_targets_hopper_and_tracks_sources():
     for src in _kernels.SOURCES:
         text = (_kernels.CSRC / src).read_text()
         assert replaces[src] in text
+
+
+def test_library_path_tracks_headers(tmp_path):
+    """Every source and header in csrc names the library: an edited header
+    in a copy of csrc gives another library path, so it is rebuilt."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share a header"
+    assert _kernels.library_path(csrc) == _kernels.library_path()
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    assert _kernels.library_path(csrc) != _kernels.library_path()

@@ -4,8 +4,9 @@ Kernels live in `tpdlp_torch/csrc/*.cu`.  At the first call that needs
 them, one `nvcc` per source compiles it (all started together), and the
 objects are linked into one shared library with a plain C interface, in
 `build/tpdlp_torch/` at the root of the checkout (ignored by git).  The
-library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt and concurrent processes never load a half-written file.
+library's file name carries a hash of every source and header in `csrc/`
+and of the flags, so an edited source or header is rebuilt and concurrent
+processes never load a half-written file.
 
 Nothing CUDA-specific happens at import: the CPU tests import every module.
 Each wrapper takes its kernel's plain PyTorch twin only for tensors that lie
@@ -67,11 +68,13 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
+    """The library built from `csrc`: named by a hash of every `*.cu` and
+    `*.cuh` there (a header change rebuilds too) and of the flags."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libtpdlp_torch_{h.hexdigest()[:16]}.so"
 
@@ -217,9 +220,10 @@ def dense_matvec(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # K2: band-slab matvec (replaces tpdlp/ops/band.py::_band_kernel)
 # ---------------------------------------------------------------------------
 
-#: Shared memory a block may take without opting in: the kernel stages one
-#: window of x there, so WB * itemsize must fit.
-_MAX_WINDOW_BYTES = 48 * 1024
+#: The widest slab row the kernel takes (kMaxRowBytes in
+#: csrc/band_matvec.cu: WB = 2048 in fp64): a row must fit one stage of its
+#: shared-memory ring, and two blocks per SM must fit their windows.
+_MAX_WINDOW_BYTES = 16 * 1024
 
 
 def band_matvec_plain(slabs: torch.Tensor, starts: torch.Tensor,
