@@ -41,16 +41,38 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              tpdlp_torch/bench/band_scale.py at full size (its dense K
              would take 40 GB), matrix_format="band", the same settings,
              seed 0.  The same checks, and its peak device memory.
-6. profile — one mittelmann-s solve, and the band instance over two
-             bounded KKT budgets, under torch.profiler (device activity
-             only): the device's busy share of the wall time and the device
-             time by kernel; for the band path also the difference of the
-             two solves, i.e. the steady loop, whose band_matvec launches
-             (the wrapper's counter) must equal the count the code
-             implies; the trace's band_matvec events are printed beside.
-7. cross   — maros-class on the card in fp32 and on the CPU in fp64; a
+6. certify — the per-iteration loop (certificates, loop_mode="periter",
+             Halpern) at full size: mittelmann-s blocked, with the ray and
+             normalized certificates, and per-iteration without them (the
+             last two must give the blocked k, n and x bit for bit, and the
+             certificates j = j_blocked + k - 1); mittelmann-s under Halpern,
+             blocked and with the ray certificates (the reported feasible
+             point's fp64 residuals and bounds); the banded 100k instance
+             with the ray certificates over K2 (the band phase's k, n and
+             objective bits); and the infeasibility battery of
+             tpdlp_torch/bench/infeasibility.py at its full sizes, each
+             row's status held to the scipy linprog oracle's, which worker
+             processes compute meanwhile (a row linprog cannot decide in
+             ORACLE_SECONDS per method is held to the verdict its
+             construction plants, and its line says so).
+7. profile — one mittelmann-s solve blocked and one per-iteration with
+             certificates, and the band instance over two bounded KKT
+             budgets, under torch.profiler (device activity only): the
+             device's busy share of the wall time, the device time by
+             kernel, and device activities and wall per iteration; for the
+             band path also the difference of the two solves, i.e. the
+             steady loop, whose band_matvec launches (the wrapper's
+             counter) must equal the count the code implies; the trace's
+             band_matvec events are printed beside.
+8. cross   — maros-class on the card in fp32 and on the CPU in fp64; a
              banded instance small enough to hold dense, on the card as
              band and as dense in fp32 and on the CPU as band in fp64.
+
+Every solve's kernel launches are held to the count the code implies: two
+per issued iteration and per issued restart check, plus the power
+iteration's and init_state's.  Issued iterations are k, plus, when a
+certificate fires mid-cycle, the masked rest of that cycle; both are
+printed.
 
 Then the kernel summary line, the card's `nvidia-smi` name and power limit,
 and last {"ok": true, "device": {...}}.  Needs one CUDA device; exits
@@ -60,6 +82,7 @@ non-zero without one.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
@@ -97,6 +120,28 @@ BAND_RANDOM = [(5001, 777, 128), (30001, 40003, 2048)]
 BAND_PROFILE_KKT = (2000, 4000)
 #: The band cross check's instance (small enough to hold dense).
 BAND_CROSS = (8192, 4096, 2048, 65)
+#: The infeasibility battery's rows: (dtype, KKT budget, must certify).  The
+#: JAX package certifies the first seven in the stated precision; the two
+#: largest planted-infeasible rows it does not certify in fp32 within its
+#: budget, so there only Solved or the wrong certificate fails, and their
+#: budget is cut to keep the script's time.
+BATTERY = {
+    "infeas01": ("float32", MAX_KKT, True),
+    "unbnd01": ("float32", MAX_KKT, True),
+    "synth_unbounded_n30_s0": ("float32", MAX_KKT, True),
+    "synth_unbounded_n757_s1": ("float32", MAX_KKT, True),
+    "synth_unbounded_n5000_s7": ("float32", MAX_KKT, True),
+    "synth_infeasible_n40_m11_s0": ("float64", MAX_KKT, True),
+    "synth_infeasible_n757_m281_s1": ("float64", MAX_KKT, True),
+    "synth_infeasible_n5000_m1501_s7": ("float32", 15_000, False),
+    "synth_infeasible_n10000_m3001_s7": ("float32", 15_000, False),
+}
+#: The certificate families on (the battery's and the certify phase's).
+CERTIFICATES = dict(infeasibility_detect=True, normalized_certificates=True)
+#: Seconds each linprog method may take on one battery row; the oracles run
+#: in worker processes beside the card's solves.
+ORACLE_SECONDS = 150.0
+ORACLE_WORKERS = 3
 
 #: Data-sheet rates by card: HBM bytes/s, fp32 and fp64 flop/s outside the
 #: tensor cores (NVIDIA data sheets; SXM unless the name says otherwise).
@@ -457,10 +502,30 @@ def host_residuals(problem, x, y):
     }
 
 
+def expected_launches(cfg, r, issued) -> int:
+    """K products the code implies for one solve: two per issued iteration
+    (K x+ and K'y+) and per issued restart check (the average's), the
+    power iteration's 2 * power_iters + 1 and init_state's 2.  Issued
+    iterations are k, plus, after a certificate fired mid-cycle, the masked
+    rest of that cycle; any other difference fails."""
+    from tpdlp_torch import Status
+
+    tail = issued["iterations"] - r.iterations
+    certified = r.status in (Status.DUAL_INFEASIBLE,
+                             Status.PRIMAL_INFEASIBLE)
+    if not 0 <= tail < (cfg.restart_period if certified else 1):
+        raise AssertionError(
+            f"{issued['iterations']} iterations issued for k = "
+            f"{r.iterations} ({r.status_string})")
+    return (2 * issued["iterations"] + 2 * issued["restart_checks"]
+            + 2 * cfg.power_iters + 1 + 2)
+
+
 def solve_phase(dev):
     from tpdlp_torch import SolverConfig, solve
     from tpdlp_torch.bench.suite import build_suite
     from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.solver import loop as L
 
     cfg = SolverConfig(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
                        adaptive=True, primal_weight_update=True,
@@ -475,15 +540,15 @@ def solve_phase(dev):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             mem_before = torch.cuda.memory_allocated(dev)
+            L.reset_launched()
             t0 = time.perf_counter()
             r = solve(p, cfg, dtype=torch.float32, device=dev, seed=seed)
             wall = time.perf_counter() - t0
             launches = K.launches["dense_matvec"] - before
-            T = cfg.restart_period
-            if r.iterations % T:
+            issued = dict(L.launched)
+            if r.iterations % cfg.restart_period:
                 raise AssertionError("blocked cycles leave k % T == 0")
-            expect = 2 * r.iterations + 2 * (r.iterations // T) + (
-                2 * cfg.power_iters + 1) + 2
+            expect = expected_launches(cfg, r, issued)
             check = host_residuals(p, r.x, r.y)
             row = {
                 "instance": p.name, "shape": list(p.shape), "seed": seed,
@@ -492,6 +557,8 @@ def solve_phase(dev):
                 "objective": r.objective, "solve_time_s": r.solve_time,
                 "wall_s": wall, "it_per_s": r.iterations / wall,
                 "launches": launches, "launches_expected": expect,
+                "iterations_issued": issued["iterations"],
+                "restart_checks_issued": issued["restart_checks"],
                 "mem_before_gb": mem_before / 1e9,
                 "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                 **check,
@@ -526,6 +593,7 @@ def band_phase(dev, p):
     from tpdlp_torch import SolverConfig, solve
     from tpdlp_torch.ops import _kernels as K
     from tpdlp_torch.ops.band import band_stored_elems
+    from tpdlp_torch.solver import loop as L
 
     cfg = SolverConfig(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
                        adaptive=True, primal_weight_update=True,
@@ -535,17 +603,17 @@ def band_phase(dev, p):
     torch.cuda.reset_peak_memory_stats(dev)
     mem_before = torch.cuda.memory_allocated(dev)
     K.reset_launches()
+    L.reset_launched()
     t0 = time.perf_counter()
     r = solve(p, cfg, dtype=torch.float32, device=dev, seed=0,
               matrix_format="band")
     wall = time.perf_counter() - t0
     launches = dict(K.launches)
+    issued = dict(L.launched)
     peak = torch.cuda.max_memory_allocated(dev)
-    T = cfg.restart_period
-    if r.iterations % T:
+    if r.iterations % cfg.restart_period:
         raise AssertionError("blocked cycles leave k % T == 0")
-    expect = 2 * r.iterations + 2 * (r.iterations // T) + (
-        2 * cfg.power_iters + 1) + 2
+    expect = expected_launches(cfg, r, issued)
     check = host_residuals(p, r.x, r.y)
     row = {
         "instance": p.name, "shape": list(p.shape), "nnz": int(p.K.nnz),
@@ -555,6 +623,8 @@ def band_phase(dev, p):
         "solve_time_s": r.solve_time, "wall_s": wall,
         "it_per_s": r.iterations / wall,
         "launches": launches["band_matvec"], "launches_expected": expect,
+        "iterations_issued": issued["iterations"],
+        "restart_checks_issued": issued["restart_checks"],
         "dense_launches": launches["dense_matvec"],
         "mem_before_gb": mem_before / 1e9, "peak_mem_gb": peak / 1e9,
         **check,
@@ -575,6 +645,170 @@ def band_phase(dev, p):
     return row, launches["band_matvec"]
 
 
+def _counted_solve(dev, p, cfg, dtype=torch.float32, **solve_kw):
+    """One solve (seed 0), the kernel launch counts and the loop's issued
+    iterations and restart checks set to 0 just before it and read just
+    after.  Returns (result, wall seconds, launches, issued)."""
+    from tpdlp_torch import solve
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.solver import loop as L
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    L.reset_launched()
+    t0 = time.perf_counter()
+    r = solve(p, cfg, dtype=dtype, device=dev, seed=0, **solve_kw)
+    wall = time.perf_counter() - t0
+    return r, wall, dict(K.launches), dict(L.launched)
+
+
+def _certify_row(name, way, kernel, cfg, r, wall, launches, issued):
+    """The JSON row of one counted solve; fails unless `kernel`'s launches
+    equal the count the code implies and the other kernel never ran."""
+    expect = expected_launches(cfg, r, issued)
+    other = next(k for k in launches if k != kernel)
+    row = {
+        "instance": name, "way": way, "status": r.status_string,
+        "k": r.iterations, "n": r.restarts, "j": r.kkt_passes,
+        "objective": r.objective, "wall_s": wall,
+        "it_per_s": r.iterations / wall, "kernel": kernel,
+        "launches": launches[kernel], "launches_expected": expect,
+        "iterations_issued": issued["iterations"],
+        "restart_checks_issued": issued["restart_checks"],
+    }
+    if launches[kernel] <= 0 or launches[kernel] != expect:
+        raise AssertionError(f"{name} {way}: {launches[kernel]} {kernel} "
+                             f"launches, expected {expect}")
+    if launches[other]:
+        raise AssertionError(f"{name} {way}: {other} launched")
+    return row
+
+
+def _same_run(name, r, ref, what):
+    """k, n, objective and x of `r` bit-identical to `ref`'s."""
+    if not ((r.iterations, r.restarts, r.objective)
+            == (ref.iterations, ref.restarts, ref.objective)
+            and np.array_equal(r.x, ref.x)):
+        raise AssertionError(f"{name}: {what} differs from the blocked run "
+                             f"(k {r.iterations} vs {ref.iterations})")
+
+
+def timed_oracle(problem):
+    """(linprog status, seconds) of one battery row, in a worker process."""
+    from tpdlp_torch.bench.infeasibility import oracle_status
+
+    t0 = time.perf_counter()
+    return oracle_status(problem, ORACLE_SECONDS), time.perf_counter() - t0
+
+
+def certify_phase(dev, p_band, band_blocked):
+    """The per-iteration loop at full size: mittelmann-s three ways and
+    under Halpern, the banded 100k instance with certificates, and the
+    infeasibility battery, whose linprog oracles run in worker processes
+    meanwhile.  Returns the K1 and K2 launches of the certificate-on
+    mittelmann-s and banded solves."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tpdlp_torch.bench import infeasibility as B
+
+    battery = B.build_battery()
+    pool = ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        oracles = {name: pool.submit(timed_oracle, prob)
+                   for name, prob, _ in battery}
+        return _certify(dev, p_band, band_blocked, battery, oracles)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _certify(dev, p_band, band_blocked, battery, oracles):
+    from tpdlp_torch import SolverConfig, Status
+    from tpdlp_torch.bench import infeasibility as B
+    from tpdlp_torch.bench.suite import build_suite
+
+    (p,) = build_suite(("large",), names=("mittelmann-s",))
+    base = dict(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
+                primal_weight_update=True, time_limit=600)
+    ways = {
+        "blocked": dict(adaptive=True),
+        "certificates": dict(adaptive=True, **CERTIFICATES),
+        "periter": dict(adaptive=True, loop_mode="periter"),
+        "halpern": dict(adaptive=False, step_scheme="halpern"),
+        "halpern_certificates": dict(adaptive=False, step_scheme="halpern",
+                                     infeasibility_detect=True),
+    }
+    runs, launches = {}, {}
+    for way, extra in ways.items():
+        cfg = SolverConfig(**base, **extra)
+        r, wall, kl, issued = _counted_solve(dev, p, cfg)
+        check = host_residuals(p, r.x, r.y)
+        emit("certify", **_certify_row(p.name, way, "dense_matvec", cfg, r,
+                                       wall, kl, issued), **check)
+        _check_solution(f"{p.name} {way}", r, check)
+        # The reported point is the feasible PDHG output, clamped to the
+        # box in the scaled frame: only fp32 rounding of the unscaling.
+        if extra.get("step_scheme") and check["bound_violation"] > 1e-5:
+            raise AssertionError(f"{p.name} {way}: bounds {check}")
+        runs[way] = r
+        launches[way] = kl["dense_matvec"]
+    for way, ref in (("certificates", "blocked"), ("periter", "blocked"),
+                     ("halpern_certificates", "halpern")):
+        _same_run(p.name, runs[way], runs[ref], way)
+    ledger = {
+        "certificates": runs["blocked"].kkt_passes
+        + runs["blocked"].iterations - 1,
+        "periter": runs["blocked"].kkt_passes,
+        "halpern_certificates": runs["halpern"].kkt_passes
+        + runs["halpern"].iterations - 1,
+    }
+    emit("certify_ledger", instance=p.name,
+         j={way: runs[way].kkt_passes for way in ledger}, expected=ledger)
+    if any(runs[way].kkt_passes != j for way, j in ledger.items()):
+        raise AssertionError(f"{p.name}: KKT ledger {ledger}")
+
+    # The band path at full width, with the ray certificates.
+    cfg = SolverConfig(**base, adaptive=True, infeasibility_detect=True)
+    r, wall, kl, issued = _counted_solve(dev, p_band, cfg,
+                                         matrix_format="band")
+    check = host_residuals(p_band, r.x, r.y)
+    emit("certify", **_certify_row(p_band.name, "certificates",
+                                   "band_matvec", cfg, r, wall, kl, issued),
+         j_blocked=band_blocked["j"], **check)
+    _check_solution(f"{p_band.name} certificates", r, check)
+    if not ((r.iterations, r.restarts, r.objective)
+            == (band_blocked["k"], band_blocked["n"],
+                band_blocked["objective"])
+            and r.kkt_passes == band_blocked["j"] + r.iterations - 1):
+        raise AssertionError(f"{p_band.name}: certificates changed the run")
+    launches["band_certificates"] = kl["band_matvec"]
+
+    # The battery, each row's verdict held to the scipy linprog oracle's.
+    # A row linprog leaves undecided within ORACLE_SECONDS per method is
+    # held to the verdict its construction plants, and says so.
+    for name, prob, planted in battery:
+        dtype, max_kkt, certifies = BATTERY[name]
+        cfg = B.battery_config(max_kkt=max_kkt)
+        r, wall, kl, issued = _counted_solve(dev, prob, cfg,
+                                             getattr(torch, dtype))
+        oracle, oracle_s = oracles[name].result()
+        decided = oracle in (0, 2, 3)
+        want = B.EXPECT[planted]
+        emit("certify_battery", **_certify_row(
+            name, dtype, "dense_matvec", cfg, r, wall, kl, issued),
+             shape=list(prob.shape), max_kkt=max_kkt, oracle=oracle,
+             oracle_decided=decided, oracle_s=oracle_s,
+             expected=want.describe(), must_certify=certifies)
+        if decided and oracle != planted:
+            raise AssertionError(f"{name}: linprog says {oracle}")
+        wrong = r.status == Status.SOLVED or (
+            r.status in B.EXPECT.values() and r.status != want)
+        if wrong or (certifies and r.status != want):
+            raise AssertionError(f"{name} {dtype}: {r.status_string}, "
+                                 f"expected {want.describe()}")
+    return launches["certificates"], launches["band_certificates"]
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -585,17 +819,19 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def _profile_solve(dev, p, kernel, max_kkt, **solve_kw):
+def _profile_solve(dev, p, kernel, max_kkt, extra=None, **solve_kw):
     """One solve (seed 0) under torch.profiler, device activity only: the
     device's busy share of the solve's wall time and the device time by
-    kernel, `kernel`'s share of the busy time among them."""
+    kernel, `kernel`'s share of the busy time among them.  `extra`: more
+    SolverConfig fields."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpdlp_torch import SolverConfig, solve
     from tpdlp_torch.ops import _kernels as K
 
     cfg = SolverConfig(tol=TOL, max_kkt=max_kkt, scaling="ruiz",
-                       adaptive=True, primal_weight_update=True)
+                       adaptive=True, primal_weight_update=True,
+                       **(extra or {}))
     torch.cuda.synchronize()
     before = K.launches[kernel]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -616,7 +852,7 @@ def _profile_solve(dev, p, kernel, max_kkt, **solve_kw):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     kernel_us = sum(v for k, v in by_name.items() if kernel in k)
     emit("profile", instance=p.name, seed=0, status=r.status_string,
-         k=r.iterations, j=r.kkt_passes, max_kkt=max_kkt,
+         extra=extra or {}, k=r.iterations, j=r.kkt_passes, max_kkt=max_kkt,
          wall_ms=wall_us / 1e3, device_events=len(spans),
          device_busy_ms=busy / 1e3,
          device_busy_share=busy / wall_us if spans else None,
@@ -630,17 +866,27 @@ def _profile_solve(dev, p, kernel, max_kkt, **solve_kw):
     if not kernel_events:
         raise AssertionError(f"profile: no {kernel} event in the trace")
     return {"k": r.iterations, "wall_us": wall_us, "busy_us": busy,
-            "kernel_us": kernel_us, "kernel_events": kernel_events,
-            "launches": counted, "restart_period": cfg.restart_period}
+            "events": len(spans), "kernel_us": kernel_us,
+            "kernel_events": kernel_events, "launches": counted,
+            "restart_period": cfg.restart_period}
 
 
 def profile_phase(dev, p_band):
-    """Where the time goes: one mittelmann-s solve, and the band path over
-    a bounded KKT budget."""
+    """Where the time goes: one mittelmann-s solve blocked and one
+    per-iteration with the certificates, and the band path over a bounded
+    KKT budget."""
     from tpdlp_torch.bench.suite import build_suite
 
     (p,) = build_suite(("large",), names=("mittelmann-s",))
-    _profile_solve(dev, p, "dense_matvec", MAX_KKT)
+    loops = {"blocked": _profile_solve(dev, p, "dense_matvec", MAX_KKT),
+             "certificates": _profile_solve(dev, p, "dense_matvec", MAX_KKT,
+                                            CERTIFICATES)}
+    emit("profile_periter", instance=p.name, **{
+        way: {"k": v["k"], "device_events": v["events"],
+              "device_events_per_iteration": v["events"] / v["k"],
+              "wall_ms_per_iteration": v["wall_us"] / v["k"] / 1e3,
+              "device_busy_ms_per_iteration": v["busy_us"] / v["k"] / 1e3}
+        for way, v in loops.items()})
     a, b = (_profile_solve(dev, p_band, "band_matvec", kkt,
                            matrix_format="band")
             for kkt in BAND_PROFILE_KKT)
@@ -771,7 +1017,8 @@ def main() -> int:
     dense_rows = kernels_phase(dev, rates)
     band_rows = band_kernels_phase(dev, rates, p_band)
     _, dense_launches = solve_phase(dev)
-    _, band_launches = band_phase(dev, p_band)
+    band_row, band_launches = band_phase(dev, p_band)
+    dense_certify, band_certify = certify_phase(dev, p_band, band_row)
     profile_phase(dev, p_band)
     cross_phase(dev)
     band_cross_phase(dev)
@@ -786,10 +1033,12 @@ def main() -> int:
         {**_kernel_entry("dense_matvec", "tpdlp_torch/csrc/dense_matvec.cu",
                          "tpdlp/ops/pallas_dense.py:77", dense_launches,
                          dense_rows, dense_head),
+         "launches_certificates": dense_certify,
          "shape": list(HEADLINE_SHAPE)},
         {**_kernel_entry("band_matvec", "tpdlp_torch/csrc/band_matvec.cu",
                          "tpdlp/ops/band.py:160", band_launches, band_rows,
                          band_head),
+         "launches_certificates": band_certify,
          "csr_ms": band_head["csr_ms"], "shape": band_head["slabs"]},
     ]}), flush=True)
     print(smi, flush=True)

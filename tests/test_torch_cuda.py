@@ -254,3 +254,57 @@ def test_dense_solve_on_card_replays_bit_for_bit(card):
     assert runs[0].objective == runs[1].objective
     assert np.array_equal(runs[0].x, runs[1].x)
     assert np.array_equal(runs[0].y, runs[1].y)
+
+
+def _banded_8192():
+    return tpdlp_torch.generate_banded_lp(n=8192, m_ineq=4096, m_eq=2048,
+                                          bandwidth=65, seed=2)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "band"])
+def test_certificates_and_periter_on_card(card, fmt):
+    """fp32 on the card, the main path's settings: the certificate-on solve
+    replays bit for bit, and it and the per-iteration solve give the blocked
+    solve's k, n, x and y bits; the certificates add one KKT pass per
+    iteration from k = 2 on (j = j_blocked + k - 1)."""
+    if fmt == "dense":
+        (p,) = build_suite(("medium",), names=("maros-class",))
+    else:
+        p = _banded_8192()
+    base = dict(tol=1e-4, scaling="ruiz", adaptive=True,
+                primal_weight_update=True)
+
+    def run(**extra):
+        return tpdlp_torch.solve(p, tpdlp_torch.SolverConfig(**base, **extra),
+                                 dtype=torch.float32, seed=0,
+                                 matrix_format=fmt)
+
+    rb = run()
+    certs = [run(infeasibility_detect=True, normalized_certificates=True)
+             for _ in range(2)]
+    rp = run(loop_mode="periter")
+    assert rb.status == tpdlp_torch.Status.SOLVED
+    for r in (*certs, rp):
+        assert r.status == rb.status
+        assert (r.iterations, r.restarts) == (rb.iterations, rb.restarts)
+        assert r.objective == rb.objective
+        assert np.array_equal(r.x, rb.x) and np.array_equal(r.y, rb.y)
+    assert rp.kkt_passes == rb.kkt_passes
+    assert certs[0].kkt_passes == certs[1].kkt_passes == (
+        rb.kkt_passes + rb.iterations - 1)
+
+
+def test_certificates_fire_on_card(card):
+    """The planted rows of the battery the JAX package certifies: an
+    unbounded LP in fp32 and an infeasible one in fp64, through K1."""
+    cfg = tpdlp_torch.SolverConfig(
+        tol=1e-6, scaling="ruiz", adaptive=True, primal_weight_update=True,
+        infeasibility_detect=True, normalized_certificates=True)
+    before = _kernels.launches["dense_matvec"]
+    ru = tpdlp_torch.solve(tpdlp_torch.generate_unbounded_lp(seed=0), cfg,
+                           dtype=torch.float32)
+    ri = tpdlp_torch.solve(tpdlp_torch.generate_infeasible_lp(seed=0), cfg,
+                           dtype=torch.float64)
+    assert _kernels.launches["dense_matvec"] > before
+    assert ru.status == tpdlp_torch.Status.DUAL_INFEASIBLE
+    assert ri.status == tpdlp_torch.Status.PRIMAL_INFEASIBLE

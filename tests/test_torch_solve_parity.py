@@ -1,7 +1,8 @@
 """Whole-slice parity: `tpdlp_torch.solve` against `tpdlp.solve` on the
 suite's small classes, deg2-class and maros-class, in fp64 on the CPU with
 the JAX power-iteration draw injected, and the solve() paths around the
-loop (warm start, time limit, KKT budget, unported options).
+loop (warm start, time limit, KKT budget, the per-iteration slice's
+options, unported options).
 
 Exact parity (same k, n, j, status; x, y, objective to 1e-9) is asserted
 for fixed steps.  Under the adaptive (Malitsky-Pock) rule the trajectory
@@ -183,17 +184,36 @@ def test_result_surface_equals_jax(jax_b0):
     (dict(checkpoint_path="ckpt"), 16),
     (dict(resume=True), 16),
     (dict(mesh=object()), 21),
-    (dict(config=tpdlp_torch.SolverConfig(infeasibility_detect=True)), 11),
-    (dict(config=tpdlp_torch.SolverConfig(normalized_certificates=True)),
-     11),
-    (dict(config=tpdlp_torch.SolverConfig(loop_mode="periter")), 11),
-    (dict(config=tpdlp_torch.SolverConfig(step_scheme="halpern")), 11),
-    (dict(config=tpdlp_torch.SolverConfig(restart_period=512)), 11),
 ])
 def test_unported_options_raise(kw, item):
     p = _SUITE["afiro-class"]
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         tpdlp_torch.solve(p, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(infeasibility_detect=True),
+    dict(normalized_certificates=True),
+    dict(loop_mode="periter"),
+    dict(step_scheme="halpern"),
+    dict(restart_period=512),
+], ids=["infeasibility_detect", "normalized_certificates", "periter",
+        "halpern", "restart_period_512"])
+def test_per_iteration_options_match_jax(jax_b0, kw):
+    """The options of the per-iteration slice on afiro-class under fixed
+    steps: the JAX package's status, k, n and j."""
+    rj, rt = _both(_SUITE["afiro-class"], tol=1e-6, **FIXED, **kw)
+    assert rj.status == tpdlp.Status.SOLVED
+    _exact(rj, rt)
+
+
+def test_halpern_with_adaptive_raises_like_jax():
+    p = _SUITE["afiro-class"]
+    kw = dict(step_scheme="halpern", adaptive=True)
+    with pytest.raises(ValueError, match="requires adaptive=False"):
+        tpdlp.solve(p, tpdlp.SolverConfig(**kw))
+    with pytest.raises(ValueError, match="requires adaptive=False"):
+        tpdlp_torch.solve(p, tpdlp_torch.SolverConfig(**kw), device="cpu")
 
 
 def test_band_format_rejects_unstructured():

@@ -188,13 +188,3 @@ def test_chunk_from_mid_cycle_equals_jax(name, extra, rtol):
     ours = TL.run_chunk(st, pb, budget, cfg, aligned=False)
     assert int(ref.t) % jcfg.restart_period == 0 and int(ref.j) >= budget
     _same_state(ours, ref, rtol)
-
-
-def test_unported_loops_raise():
-    _, _, _, pb, st, cfg = _carried("fixed")
-    for kw in (dict(loop_mode="periter"), dict(infeasibility_detect=True),
-               dict(restart_period=300)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TL.run_chunk(st, pb, 10**6, cfg.replace(**kw))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TL.run_chunk(st, pb, 10**6, cfg.replace(step_scheme="halpern"))

@@ -12,7 +12,13 @@ torch state.
 """
 
 from tpdlp_torch.config import SolverConfig, Status
-from tpdlp_torch.io.generator import generate_banded_lp, generate_feasible_lp
+from tpdlp_torch.io.generator import (
+    generate_banded_lp,
+    generate_feasible_lp,
+    generate_infeasible_lp,
+    generate_unbounded_lp,
+)
+from tpdlp_torch.io.mps import mps_to_standard_form, read_mps
 from tpdlp_torch.problem import LPProblem
 from tpdlp_torch.solver.solve import SolveResult, solve
 
@@ -22,6 +28,10 @@ __all__ = [
     "LPProblem",
     "solve",
     "SolveResult",
+    "read_mps",
+    "mps_to_standard_form",
     "generate_feasible_lp",
     "generate_banded_lp",
+    "generate_infeasible_lp",
+    "generate_unbounded_lp",
 ]

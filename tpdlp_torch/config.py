@@ -64,7 +64,7 @@ class SolverConfig:
     beta_artificial: float = 0.36
 
     #: "vanilla" (restarted PDHG) or "halpern" (reflected PDHG with Halpern
-    #: anchoring; not ported yet).
+    #: anchoring; fixed steps only).
     step_scheme: str = "vanilla"
 
     # Step sizes.
@@ -82,7 +82,7 @@ class SolverConfig:
     #: Clamp omega to [omega0/omega_clamp, omega0*omega_clamp]; 0 disables.
     omega_clamp: float = 1e2
 
-    # Infeasibility certificates (not ported yet).
+    # Infeasibility certificates (they force the per-iteration loop).
     infeasibility_detect: bool = False
     infeas_tol: float = 1e-4
     normalized_certificates: bool = False
@@ -107,7 +107,7 @@ class SolverConfig:
     step_products: str = "auto"
 
     #: "blocked" (restart_period steps, then the restart check), "periter"
-    #: (not ported yet) or "auto" (blocked whenever legal).
+    #: (every iteration gated) or "auto" (blocked whenever legal).
     loop_mode: str = "auto"
 
     # Initialisation.

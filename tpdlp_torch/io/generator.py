@@ -1,5 +1,6 @@
-"""Synthetic planted-feasible LP generators (copies of
-tpdlp/io/generator.py::generate_feasible_lp and ::generate_banded_lp).
+"""Synthetic LP generators (copies of tpdlp/io/generator.py): planted-
+feasible (`generate_feasible_lp`, `generate_banded_lp`), planted-infeasible
+(`generate_infeasible_lp`) and planted-unbounded (`generate_unbounded_lp`).
 
 numpy/scipy code only, kept here so that this package never imports the JAX
 package: the same arguments and seed give the same problem, byte for byte.
@@ -87,6 +88,70 @@ def generate_feasible_lp(
     return LPProblem(
         c=c, K=K, q=q, m_ineq=m_ineq, l=l, u=u,
         name=f"synth_feasible_n{n}_m{m_ineq + m_eq}_s{seed}",
+    )
+
+
+def generate_infeasible_lp(
+    n: int = 40,
+    m_eq: int = 10,
+    density: float = 0.4,
+    seed: int = 0,
+) -> LPProblem:
+    """Primal-infeasible LP by construction (contradictory equalities).
+
+    The last equality row is the sum of the previous rows but with RHS
+    shifted by 1, so y = (0,...,0, 1, -1/k...) provides a Farkas certificate:
+    y'A = 0, y'b != 0 with bounds absent from the conflict (x >= large
+    negative box keeps the bound terms inert).
+    """
+    rng = np.random.default_rng(seed)
+    A = sp.random(m_eq, n, density=density, random_state=rng, format="csr")
+    A.data = rng.standard_normal(A.nnz)
+    A = A.toarray()
+    x0 = rng.uniform(-1, 1, size=n)
+    b = A @ x0
+    # Contradictory row: same coefficients as the sum of all rows, RHS + 1.
+    extra = A.sum(axis=0)
+    A_full = np.vstack([A, extra])
+    b_full = np.concatenate([b, [b.sum() + 1.0]])
+
+    c = rng.standard_normal(n)
+    l = np.full(n, -1e6)
+    u = np.full(n, 1e6)
+    return LPProblem(
+        c=c,
+        K=sp.csr_matrix(A_full),
+        q=b_full,
+        m_ineq=0,
+        l=l,
+        u=u,
+        name=f"synth_infeasible_n{n}_m{m_eq + 1}_s{seed}",
+    )
+
+
+def generate_unbounded_lp(n: int = 30, m_ineq: int = 10, seed: int = 0) -> LPProblem:
+    """Dual-infeasible (primal unbounded) LP: a free descent direction.
+
+    One variable has +inf upper bound, negative cost, and a zero column, so
+    pushing it to +inf decreases the objective without touching constraints.
+    """
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((m_ineq, n))
+    G[:, 0] = 0.0  # the ray variable appears in no constraint
+    x0 = rng.uniform(-1, 1, size=n)
+    h = G @ x0 - rng.uniform(0.1, 2.0, size=m_ineq)
+    c = rng.standard_normal(n)
+    c[0] = -1.0
+    l = np.zeros(n)
+    u = np.full(n, np.inf)
+    return LPProblem(
+        c=c,
+        K=sp.csr_matrix(G),
+        q=h,
+        m_ineq=m_ineq,
+        l=l,
+        u=u,
+        name=f"synth_unbounded_n{n}_s{seed}",
     )
 
 

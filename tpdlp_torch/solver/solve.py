@@ -2,11 +2,13 @@
 (counterpart of tpdlp/solver/solve.py, its single-device dense and band
 branches).
 
-The device runs blocked restart cycles; the host reads (status, j) once per
-cycle and checks the wall clock between chunks of KKT passes, on the JAX
-package's chunk schedule (`chunk_kkt_init`, doubling up to
-`chunk_kkt_max`).  Options this slice does not port raise
-`NotImplementedError` naming the ROADMAP.md item (queue 1) that brings them.
+The device runs blocked restart cycles, or the per-iteration loop when
+certificates, `loop_mode="periter"` or a restart period above 256 ask for
+it; the host reads a few counters at most once per cycle and checks the
+wall clock between chunks of KKT passes, on the JAX package's chunk
+schedule (`chunk_kkt_init`, doubling up to `chunk_kkt_max`).  Options the
+port does not run yet raise `NotImplementedError` naming the ROADMAP.md
+item (queue 1) that brings them.
 """
 
 from __future__ import annotations
@@ -28,12 +30,7 @@ from tpdlp_torch.problem import (
     to_device_arrays,
 )
 from tpdlp_torch.scaling.ruiz import scale_problem
-from tpdlp_torch.solver.loop import (
-    blocked_allowed,
-    final_eval,
-    read_ints,
-    run_chunk,
-)
+from tpdlp_torch.solver.loop import final_eval, read_ints, run_chunk
 from tpdlp_torch.solver.power_iteration import spectral_norm_estimate
 from tpdlp_torch.solver.state import init_state
 
@@ -184,10 +181,13 @@ def _prepare(problem, dtype, dev, op_cache, matrix_format, ineq_mask, seed,
     return pb, init_state(pb, eta0, omega0, x0, y0), t_arrays
 
 
-def _extract(pb, st):
-    """Unscaled solution and objective (x = d_col x_s, y = d_row y_s)."""
-    x = pb.d_col * st.x
-    y = pb.d_row * st.y
+def _extract(pb, st, use_prev: bool = False):
+    """Unscaled solution and objective (x = d_col x_s, y = d_row y_s).
+
+    `use_prev` (Halpern scheme): report the last feasible PDHG output (the
+    *_prev slots); the carried z iterate may lie outside the box."""
+    x = pb.d_col * (st.x_prev if use_prev else st.x)
+    y = pb.d_row * (st.y_prev if use_prev else st.y)
     return x, y, torch.dot(pb.c0, x)
 
 
@@ -219,15 +219,6 @@ def _check_ported(cfg: SolverConfig, mesh, matrix_format, presolve,
         raise _unported(f"presolve={presolve!r}", 18)
     if checkpoint_path is not None or resume:
         raise _unported("checkpoint/resume", 16)
-    if cfg.infeasibility_detect or cfg.normalized_certificates:
-        raise _unported("infeasibility certificates", 11)
-    if cfg.step_scheme != "vanilla":
-        raise _unported(f"step_scheme={cfg.step_scheme!r}", 11)
-    if not blocked_allowed(cfg):
-        raise _unported(
-            "the per-iteration loop (loop_mode='periter' or "
-            "restart_period > 256)", 11,
-        )
 
 
 def _as_dtype(dtype) -> torch.dtype:
@@ -356,6 +347,8 @@ def solve(
             break
         planned = min(cfg.max_kkt, planned + chunk)
         chunk = min(chunk * 2, cfg.chunk_kkt_max)
+        # Blocked chunks exit at a cycle boundary; a per-iteration chunk
+        # may stop mid-cycle, and its runner reads t itself.
         st = run_chunk(st, pb, planned, cfg, aligned=True)
         j_done, status_now = probe(st)
 
@@ -367,7 +360,7 @@ def solve(
         # declare Solved.
         st = final_eval(st, pb, cfg)
 
-    x, y, obj = _extract(pb, st)
+    x, y, obj = _extract(pb, st, use_prev=cfg.step_scheme == "halpern")
     vec = torch.cat([x, y, torch.stack([obj, st.primal_res, st.dual_res,
                                         st.gap])]).cpu().numpy()
     j_v, st_v, k_v, n_v = read_ints(st.j, st.status, st.k, st.n_restarts)

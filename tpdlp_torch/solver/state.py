@@ -5,8 +5,8 @@ the products K x and K'y of the current and previous iterate, so that the
 adaptive stepsize denominator and the restart KKT errors are vector work
 instead of extra products: one K x and one K'y per iteration.  It holds all
 of the JAX state's fields, the certificate and Halpern slots included, so
-that later slices and checkpoints need no reshuffle.  Counters and the
-status are int32 0-d tensors.
+that checkpoints need no reshuffle.  Counters and the status are int32 0-d
+tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ class PDHGState:
     y_prev: torch.Tensor
     kx_prev: torch.Tensor
     kty_prev: torch.Tensor
-    # Certificate slots (infeasibility detection; later slice).
+    # Certificate slots (infeasibility detection).
     lam_prev: torch.Tensor  # (n,)
     x_norm_prev: torch.Tensor  # (n,)
     y_norm_prev: torch.Tensor  # (m,)
