@@ -31,6 +31,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              band_matvec runs on the 100k banded instance's K and K' slabs
              and on random slabs at windows of 128 and 2048; beside it a
              torch CSR product of the same K is timed as a yardstick.
+             csr_matvec runs on the CSR K and K' of mittelmann-l (fp32,
+             fp64) and of the sparse-1M instance (fp32), beside cuSPARSE's
+             product of the same tensors (torch.mv), whose two repeats are
+             also compared bit for bit.
 4. solve   — the dense path: mittelmann-s and mittelmann-l at full size in
              fp32, tol 1e-4, Ruiz + adaptive steps + primal-weight update
              (the settings of the JAX package's bench runner); one warm-up
@@ -67,12 +71,30 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 8. cross   — maros-class on the card in fp32 and on the CPU in fp64; a
              banded instance small enough to hold dense, on the card as
              band and as dense in fp32 and on the CPU as band in fp64.
+9. sparse  — the sparse and auto layouts at full size, the main path's
+             settings: mittelmann-l through "sparse" (the dense phase's
+             objective within 5*tol) and through the autotune (each
+             candidate's seconds per K/K' pair and the label printed), both
+             layouts profiled per iteration; the sparse-1M instance (about
+             10M nonzeros, 1.6 TB as a dense fp32 K) through "auto", which
+             must build and time nothing but CSR, and through "sparse":
+             Solved, x and y bit-identical, peak device memory; the banded
+             100k instance through the autotune (where it picks band, the
+             band phase's k, n, j and objective); an LP with empty rows and
+             columns through "sparse".
+10. checkpoint — mittelmann-s stopped by a KKT budget with a checkpoint,
+             then resumed: the uninterrupted solve's k, n, j, objective and
+             x bits.
+11. cli    — `python -m tpdlp_torch.cli.main` over the port's vendored
+             corpus with the reference-parity flags and the certificates,
+             through the autotune (--support_sparse) and then dense: exit
+             0, and every row's status the scipy linprog verdict.
 
 Every solve's kernel launches are held to the count the code implies: two
 per issued iteration and per issued restart check, plus the power
-iteration's and init_state's.  Issued iterations are k, plus, when a
-certificate fires mid-cycle, the masked rest of that cycle; both are
-printed.
+iteration's and init_state's; the other kernels must not launch.  Issued
+iterations are k, plus, when a certificate fires mid-cycle, the masked
+rest of that cycle; both are printed.
 
 Then the kernel summary line, the card's `nvidia-smi` name and power limit,
 and last {"ok": true, "device": {...}}.  Needs one CUDA device; exits
@@ -143,6 +165,20 @@ CERTIFICATES = dict(infeasibility_detect=True, normalized_certificates=True)
 ORACLE_SECONDS = 150.0
 ORACLE_WORKERS = 3
 
+#: The sparse path's large instance: about 10M nonzeros, 1.6 TB as a
+#: dense fp32 K, its block-ELL estimate far over the autotune's budget, and
+#: not band-like (generate_feasible_lp arguments).
+SPARSE_1M = dict(n=1_000_000, m_ineq=300_000, m_eq=100_000, density=2.5e-5,
+                 seed=0)
+#: An LP with 13 empty rows and 411 empty columns in K, whose empty
+#: segments stop the JAX package's sparse operator (-inf norms) at k = 40.
+EMPTY_SEGMENTS = dict(n=2000, m_ineq=600, m_eq=200, density=0.002, seed=0)
+#: KKT budget of the first of the checkpoint phase's two solves.
+CHECKPOINT_SPLIT = 600
+#: Pass pairs of one autotune timing chain (ops/autotune.py: kkt_passes,
+#: chains of lo and 6 lo passes, each run twice).
+AUTOTUNE_LO = 10
+
 #: Data-sheet rates by card: HBM bytes/s, fp32 and fp64 flop/s outside the
 #: tensor cores (NVIDIA data sheets; SXM unless the name says otherwise).
 _CARD_RATES = [
@@ -190,7 +226,7 @@ _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
-_KERNEL_NAME = re.compile(r"\d([a-z_]+_kernel)I([fd])E")
+_KERNEL_NAME = re.compile(r"\d([a-z_]+_kernel)I([fd])(?:Li(\d+)E)?E")
 
 
 def ptxas_report(K) -> list:
@@ -211,7 +247,8 @@ def ptxas_report(K) -> list:
         if m := _PTXAS_ENTRY.search(line):
             k = _KERNEL_NAME.search(m.group(1))
             name = m.group(1) if k is None else (
-                f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}>")
+                f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
+                f"{', ' + k.group(3) if k.group(3) else ''}>")
             cur = {"kernel": name}
             out.append(cur)
         elif cur is not None and (m := _PTXAS_SPILL.search(line)):
@@ -570,8 +607,8 @@ def solve_phase(dev):
                     f"{p.name}: {launches} kernel launches, expected "
                     f"{expect}")
             runs.append(row)
-    if K.launches["band_matvec"]:
-        raise AssertionError("the dense path launched band_matvec")
+    if K.launches["band_matvec"] or K.launches["csr_matvec"]:
+        raise AssertionError("the dense path launched another kernel")
     return runs, K.launches["dense_matvec"]
 
 
@@ -635,8 +672,8 @@ def band_phase(dev, p):
         raise AssertionError(
             f"{p.name}: {launches['band_matvec']} band_matvec launches, "
             f"expected {expect}")
-    if launches["dense_matvec"]:
-        raise AssertionError("the band path launched dense_matvec")
+    if launches["dense_matvec"] or launches["csr_matvec"]:
+        raise AssertionError("the band path launched another kernel")
     # K and K' slabs twice (the caller's and Ruiz's scaled copy), plus
     # vectors and the build's triplets: far below one dense K (40 GB).
     if peak - mem_before > 3 * stored:
@@ -666,7 +703,6 @@ def _certify_row(name, way, kernel, cfg, r, wall, launches, issued):
     """The JSON row of one counted solve; fails unless `kernel`'s launches
     equal the count the code implies and the other kernel never ran."""
     expect = expected_launches(cfg, r, issued)
-    other = next(k for k in launches if k != kernel)
     row = {
         "instance": name, "way": way, "status": r.status_string,
         "k": r.iterations, "n": r.restarts, "j": r.kkt_passes,
@@ -679,8 +715,9 @@ def _certify_row(name, way, kernel, cfg, r, wall, launches, issued):
     if launches[kernel] <= 0 or launches[kernel] != expect:
         raise AssertionError(f"{name} {way}: {launches[kernel]} {kernel} "
                              f"launches, expected {expect}")
-    if launches[other]:
-        raise AssertionError(f"{name} {way}: {other} launched")
+    others = [k for k in launches if k != kernel and launches[k]]
+    if others:
+        raise AssertionError(f"{name} {way}: {others} launched")
     return row
 
 
@@ -964,6 +1001,373 @@ def band_cross_phase(dev):
         raise AssertionError(f"{p.name}: band, dense and CPU disagree")
 
 
+def _csr_bound(rows, cols, nnz, item, rates, dtype):
+    """(bound_ms, bound_by) of one CSR product: each value and column
+    index, the row offsets, x and y moved once, against 2 flops a
+    nonzero."""
+    bw, f32_peak, f64_peak = rates
+    bytes_ = nnz * (item + 4) + (rows + 1) * 4 + (cols + rows) * item
+    t_bytes = bytes_ / bw * 1e3
+    peak = f32_peak if dtype == torch.float32 else f64_peak
+    t_ops = 2 * nnz / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def csr_kernels_phase(dev, rates, p_l, p_1m):
+    """csr_matvec against its twin on the sparse path's matrices: K and K'
+    of mittelmann-l (fp32 and fp64) and of the sparse-1M instance (fp32),
+    cold and in a K/K' loop, beside cuSPARSE's product of the same CSR
+    tensor (torch.mv), whose repeats are also compared bit for bit."""
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.ops.sparse import SparseOp
+
+    flush = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    rows = []
+    for inst, prob, dtypes in (("mittelmann-l", p_l,
+                                (torch.float32, torch.float64)),
+                               ("sparse-1M", p_1m, (torch.float32,))):
+        for dtype in dtypes:
+            op = SparseOp.from_scipy(prob.K, dtype, device=dev)
+            pair = []
+            for label, mat in (("K", op.mat), ("K'", op.mat_t)):
+                crow, col, val = (mat.crow_indices(), mat.col_indices(),
+                                  mat.values())
+                m, n = mat.shape
+                x = torch.randn((n,), generator=gen, dtype=dtype,
+                                device=dev)
+                y = K.csr_matvec(crow, col, val, x)
+                y2 = K.csr_matvec(crow, col, val, x)
+                plain = K.csr_matvec_plain(crow, col, val, x)
+                lib = torch.mv(mat, x)
+                lib2 = torch.mv(mat, x)
+                torch.cuda.synchronize()
+                longest = int(crow.diff().max())
+                eps = 6e-8 if dtype == torch.float32 else 1.2e-16
+                tol = eps * max(4, longest) ** 0.5 * 30
+                rel = float(((y - plain).abs() / (1 + plain.abs())).max())
+                if not rel < tol:
+                    raise AssertionError(
+                        f"csr_matvec {inst} {label} {dtype}: rel err {rel}")
+                if not torch.equal(y, y2):
+                    raise AssertionError(f"csr_matvec {inst} {label}: "
+                                         "repeats differ")
+                bound, bound_by = _csr_bound(m, n, val.numel(),
+                                             val.element_size(), rates,
+                                             dtype)
+                row = {
+                    "case": f"{inst} {label}", "shape": [m, n],
+                    "nnz": int(val.numel()), "max_row": longest,
+                    "group": K.csr_group(m, val.numel()),
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "kernel_ms": time_launches(
+                        lambda: K.csr_matvec(crow, col, val, x), flush),
+                    "plain_ms": time_launches(
+                        lambda: K.csr_matvec_plain(crow, col, val, x),
+                        flush),
+                    "library_ms": time_launches(lambda: torch.mv(mat, x),
+                                                flush),
+                    "library_repeat_identical": bool(torch.equal(lib,
+                                                                 lib2)),
+                    "library_max_rel_diff": float(
+                        ((lib - plain).abs() / (1 + plain.abs())).max()),
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "max_rel_err": rel,
+                    "max_abs_err": float((y - plain).abs().max()),
+                    "tol": tol,
+                }
+                row["bound_share"] = bound / row["kernel_ms"]
+                emit("kernels", kernel="csr_matvec", **row)
+                rows.append(row)
+                pair.append((crow, col, val, x, mat, row))
+            (a, b) = pair
+            loop = {
+                "kernel_loop_ms": time_loop(
+                    lambda: K.csr_matvec(*a[:4]),
+                    lambda: K.csr_matvec(*b[:4])),
+                "library_loop_ms": time_loop(lambda: torch.mv(a[4], a[3]),
+                                             lambda: torch.mv(b[4], b[3])),
+            }
+            emit("kernels_loop", kernel="csr_matvec", case=inst,
+                 dtype=str(dtype).replace("torch.", ""),
+                 bound_ms=(a[5]["bound_ms"] + b[5]["bound_ms"]) / 2, **loop)
+            a[5].update(loop)
+            b[5].update(loop)
+            del op, pair, a, b
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _main_cfg():
+    from tpdlp_torch import SolverConfig
+
+    return SolverConfig(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
+                        adaptive=True, primal_weight_update=True,
+                        time_limit=600)
+
+
+def _autotuned(dev, p):
+    """choose_operator on `p` with its candidates' seconds per K/K' pair
+    printed, and an op_cache that hands the chosen operator to a
+    matrix_format="auto" solve (so that solve's launches are the formula's
+    alone).  Returns (label, cache, timed candidates)."""
+    from tpdlp_torch.ops.autotune import choose_operator
+
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op, label = choose_operator(p.K, torch.float32, device=dev,
+                                timings=timings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    emit("autotune", instance=p.name, label=label, seconds=seconds,
+         candidate_s_per_pair=timings, timed=sorted(timings))
+    key = ("auto", str(torch.float32), str(dev), p.K.shape)
+    return label, {key: op}, timings
+
+
+def _autotune_steps(dev, p):
+    """Host seconds of choose_operator's steps on a K that goes to CSR:
+    the COO view, the band and block-ELL size estimates, the CSR build."""
+    from tpdlp_torch.ops.band import band_stored_elems
+    from tpdlp_torch.ops.blocked import ell_stored_elems
+    from tpdlp_torch.ops.sparse import SparseOp
+
+    t0 = time.perf_counter()
+    coo = p.K.tocoo()
+    steps = {"tocoo": time.perf_counter() - t0}
+    for name, step in (("band_estimate", lambda: band_stored_elems(coo)),
+                       ("ell_estimate", lambda: ell_stored_elems(coo)),
+                       ("csr_build", lambda: SparseOp.from_scipy(
+                           coo, torch.float32, device=dev))):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+    return steps
+
+
+def _sparse_solve_row(dev, p, cfg, kernel, way, **solve_kw):
+    """One counted solve: its row, held to Solved, the fp64 host residual
+    check and `kernel`'s launches equal to the formula (no other kernel
+    launched).  Returns (result, row)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem_before = torch.cuda.memory_allocated(dev)
+    r, wall, kl, issued = _counted_solve(dev, p, cfg, **solve_kw)
+    check = host_residuals(p, r.x, r.y)
+    row = {**_certify_row(p.name, way, kernel, cfg, r, wall, kl, issued),
+           "shape": list(p.shape), "nnz": int(sp.csr_matrix(p.K).nnz),
+           "solve_time_s": r.solve_time,
+           "mem_before_gb": mem_before / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           **check}
+    emit("sparse", **row)
+    _check_solution(f"{p.name} {way}", r, check)
+    return r, row
+
+
+def sparse_phase(dev, p_l, dense_l, p_1m, p_band, band_row):
+    """The sparse and auto layouts at full size: mittelmann-l through CSR
+    (against the dense phase's objective) and through the autotune, with
+    both paths profiled; the sparse-1M instance through "auto" (which must
+    build nothing but CSR) and "sparse", bit-identical; the banded 100k
+    instance through the autotune; the empty-segment LP through CSR.
+    Returns (the mittelmann-l CSR row, the sparse-1M CSR launches)."""
+    from tpdlp_torch import generate_feasible_lp
+
+    cfg = _main_cfg()
+    r_l, row_l = _sparse_solve_row(dev, p_l, cfg, "csr_matvec", "sparse",
+                                   matrix_format="sparse")
+    lim = 5 * TOL * (1 + abs(dense_l["objective"]))
+    emit("sparse_vs_dense", instance=p_l.name, sparse=r_l.objective,
+         dense=dense_l["objective"], dense_k=dense_l["k"],
+         sparse_k=r_l.iterations,
+         abs_diff=abs(r_l.objective - dense_l["objective"]), limit=lim)
+    if abs(r_l.objective - dense_l["objective"]) > lim:
+        raise AssertionError(f"{p_l.name}: sparse and dense disagree")
+
+    label, cache, _ = _autotuned(dev, p_l)
+    kernel = {"dense": "dense_matvec", "band": "band_matvec",
+              "sparse": "csr_matvec"}.get(label)
+    if kernel is None:
+        raise AssertionError(f"{p_l.name}: auto chose {label}")
+    _sparse_solve_row(dev, p_l, cfg, kernel, f"auto ({label})",
+                      matrix_format="auto", op_cache=cache)
+    del cache
+
+    # Where the time goes, per iteration: CSR against dense on one LP.
+    prof = {fmt: _profile_solve(dev, p_l, kern, MAX_KKT, matrix_format=fmt)
+            for fmt, kern in (("sparse", "csr_matvec"),
+                              ("dense", "dense_matvec"))}
+    emit("profile_sparse", instance=p_l.name, **{
+        fmt: {"k": v["k"], "device_events": v["events"],
+              "wall_ms_per_iteration": v["wall_us"] / v["k"] / 1e3,
+              "device_busy_ms_per_iteration": v["busy_us"] / v["k"] / 1e3,
+              "device_busy_share": v["busy_us"] / v["wall_us"],
+              "kernel_us_per_launch": v["kernel_us"] / v["kernel_events"]}
+        for fmt, v in prof.items()})
+
+    # sparse-1M: "auto" must find nothing but CSR to build or time.
+    label, cache, timings = _autotuned(dev, p_1m)
+    if label != "sparse" or timings:
+        raise AssertionError(f"sparse-1M: auto chose {label}, timed "
+                             f"{timings}")
+    del cache
+    emit("autotune_host", instance=p_1m.name, seconds=_autotune_steps(
+        dev, p_1m))
+    torch.cuda.empty_cache()
+    r_auto, row_1m = _sparse_solve_row(dev, p_1m, cfg, "csr_matvec", "auto",
+                                       matrix_format="auto")
+    r_again, _ = _sparse_solve_row(dev, p_1m, cfg, "csr_matvec", "sparse",
+                                   matrix_format="sparse")
+    same = (r_auto.iterations, r_auto.restarts, r_auto.kkt_passes,
+            r_auto.objective) == (r_again.iterations, r_again.restarts,
+                                  r_again.kkt_passes, r_again.objective)
+    emit("sparse_replay", instance=p_1m.name, same_counters=same,
+         x_identical=bool(np.array_equal(r_auto.x, r_again.x)),
+         y_identical=bool(np.array_equal(r_auto.y, r_again.y)))
+    if not (same and np.array_equal(r_auto.x, r_again.x)
+            and np.array_equal(r_auto.y, r_again.y)):
+        raise AssertionError("sparse-1M: the two solves differ")
+    torch.cuda.empty_cache()
+
+    # banded 100k through the autotune; where it picks band, the band
+    # phase's run exactly.
+    label, cache, _ = _autotuned(dev, p_band)
+    kernel = {"band": "band_matvec", "sparse": "csr_matvec"}.get(label)
+    if kernel is None and label != "blocked":
+        raise AssertionError(f"{p_band.name}: auto chose {label}")
+    if kernel is None:  # block-ELL runs no kernel of its own
+        r, wall, kl, issued = _counted_solve(dev, p_band, cfg,
+                                             matrix_format="auto",
+                                             op_cache=cache)
+        check = host_residuals(p_band, r.x, r.y)
+        emit("sparse", instance=p_band.name, way="auto (blocked)",
+             status=r.status_string, k=r.iterations, launches=kl, **check)
+        _check_solution(f"{p_band.name} auto", r, check)
+    else:
+        r, _ = _sparse_solve_row(dev, p_band, cfg, kernel,
+                                 f"auto ({label})", matrix_format="auto",
+                                 op_cache=cache)
+    if label == "band" and (r.iterations, r.restarts, r.kkt_passes,
+                            r.objective) != (
+            band_row["k"], band_row["n"], band_row["j"],
+            band_row["objective"]):
+        raise AssertionError(f"{p_band.name}: auto (band) differs from the "
+                             "band phase")
+    del cache
+    torch.cuda.empty_cache()
+
+    p_e = generate_feasible_lp(**EMPTY_SEGMENTS)
+    p_e.name = "empty-segments n2000"
+    K_e = sp.csr_matrix(p_e.K)
+    emit("empty_segments", instance=p_e.name,
+         empty_rows=int((np.diff(K_e.indptr) == 0).sum()),
+         empty_cols=int((np.diff(K_e.tocsc().indptr) == 0).sum()))
+    _sparse_solve_row(dev, p_e, cfg, "csr_matvec", "sparse",
+                      matrix_format="sparse")
+    return row_l, row_1m["launches"]
+
+
+def checkpoint_phase(dev):
+    """mittelmann-s in two solves through a checkpoint (the first stops at
+    CHECKPOINT_SPLIT KKT passes, the second resumes): the uninterrupted
+    solve's k, n, j, status, objective and x bits."""
+    from tpdlp_torch import Status, solve
+    from tpdlp_torch.bench.suite import build_suite
+    from tpdlp_torch.ops import _kernels as K
+
+    (p,) = build_suite(("large",), names=("mittelmann-s",))
+    cfg = _main_cfg()
+    ref = solve(p, cfg, dtype=torch.float32, device=dev, seed=0)
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as tmp:
+        path = f"{tmp}/mittelmann-s"
+        t0 = time.perf_counter()
+        first = solve(p, cfg.replace(max_kkt=CHECKPOINT_SPLIT),
+                      dtype=torch.float32, device=dev, seed=0,
+                      checkpoint_path=path)
+        resumed = solve(p, cfg, dtype=torch.float32, device=dev, seed=0,
+                        checkpoint_path=path, resume=True)
+        wall = time.perf_counter() - t0
+    same = ((resumed.status, resumed.iterations, resumed.restarts,
+             resumed.kkt_passes, resumed.objective)
+            == (ref.status, ref.iterations, ref.restarts, ref.kkt_passes,
+                ref.objective))
+    emit("checkpoint", instance=p.name, split_kkt=CHECKPOINT_SPLIT,
+         first=[first.status_string, first.iterations, first.kkt_passes],
+         resumed=[resumed.status_string, resumed.iterations,
+                  resumed.restarts, resumed.kkt_passes, resumed.objective],
+         uninterrupted=[ref.status_string, ref.iterations, ref.restarts,
+                        ref.kkt_passes, ref.objective],
+         x_identical=bool(np.array_equal(resumed.x, ref.x)),
+         wall_s=wall)
+    if first.status != Status.KKT_LIMIT or ref.status != Status.SOLVED:
+        raise AssertionError(f"checkpoint: {first.status}, {ref.status}")
+    if not (same and np.array_equal(resumed.x, ref.x)):
+        raise AssertionError("checkpoint: the resumed solve differs")
+
+
+def cli_phase():
+    """python -m tpdlp_torch.cli.main over the port's vendored corpus with
+    the reference-parity flags, through the autotune and then dense: exit
+    0, a status in every row, and each row's status the scipy linprog
+    verdict (Solved, PRIMAL_INFEASIBLE or DUAL_INFEASIBLE)."""
+    import csv
+    import os
+
+    from tpdlp_torch import Status, read_mps
+    from tpdlp_torch.bench.infeasibility import oracle_status
+    from tpdlp_torch.bench.suite import INSTANCES_DIR
+    from tpdlp_torch.ops import _kernels as K
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    verdict = {0: Status.SOLVED, 2: Status.PRIMAL_INFEASIBLE,
+               3: Status.DUAL_INFEASIBLE}
+    files = sorted(f for f in os.listdir(INSTANCES_DIR) if f.endswith(".mps"))
+    oracle = {f: oracle_status(read_mps(os.path.join(INSTANCES_DIR, f)),
+                               ORACLE_SECONDS) for f in files}
+    flags = ["--instance_path", os.path.relpath(INSTANCES_DIR, root),
+             "--precondition", "--adaptive_stepsize",
+             "--primal_weight_update", "--infeasibility_detect"]
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for layout in (["--support_sparse"], ["--matrix_format", "dense"]):
+        with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as out:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpdlp_torch.cli.main", *flags,
+                 *layout, "--output_path", out],
+                capture_output=True, text=True, timeout=600, cwd=root)
+            wall = time.perf_counter() - t0
+            rows = []
+            if proc.returncode == 0:
+                with open(f"{out}/solver_results.csv", newline="") as f:
+                    rows = list(csv.DictReader(f))
+        got = {r["File"]: r for r in rows}
+        emit("cli", flags=layout, returncode=proc.returncode, wall_s=wall,
+             rows=[[r["File"], r["Status"], r["Iterations (k)"],
+                    r["KKT Passes (j)"], r["Objective"]] for r in rows],
+             oracle={f: verdict.get(s, Status.RUNNING).describe()
+                     for f, s in oracle.items()})
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {layout}: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        if sorted(got) != files:
+            raise AssertionError(f"cli {layout}: rows {sorted(got)}")
+        for f in files:
+            want = verdict.get(oracle[f])
+            if want is None:
+                raise AssertionError(f"cli: linprog leaves {f} undecided")
+            if "N/A" in got[f].values() or got[f]["Status"] != (
+                    want.describe()):
+                raise AssertionError(f"cli {layout}: {f} {got[f]}, linprog "
+                                     f"says {want.describe()}")
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head):
     return {
         "name": name,
@@ -1014,20 +1418,39 @@ def main() -> int:
     emit("band_instance", instance=p_band.name, nnz=int(p_band.K.nnz),
          seconds=time.perf_counter() - t0)
 
+    from tpdlp_torch import generate_feasible_lp
+    from tpdlp_torch.bench.suite import build_suite
+
+    (p_l,) = build_suite(("xl",), names=("mittelmann-l",))
+    t0 = time.perf_counter()
+    p_1m = generate_feasible_lp(**SPARSE_1M)
+    p_1m.name = "sparse-1M"
+    emit("sparse_instance", instance=p_1m.name, shape=list(p_1m.shape),
+         nnz=int(p_1m.K.nnz), seconds=time.perf_counter() - t0)
+
     dense_rows = kernels_phase(dev, rates)
     band_rows = band_kernels_phase(dev, rates, p_band)
-    _, dense_launches = solve_phase(dev)
+    csr_rows = csr_kernels_phase(dev, rates, p_l, p_1m)
+    dense_runs, dense_launches = solve_phase(dev)
     band_row, band_launches = band_phase(dev, p_band)
     dense_certify, band_certify = certify_phase(dev, p_band, band_row)
     profile_phase(dev, p_band)
     cross_phase(dev)
     band_cross_phase(dev)
+    dense_l = next(r for r in dense_runs
+                   if r["instance"] == p_l.name and r["seed"] == 0)
+    sparse_row, csr_launches_1m = sparse_phase(dev, p_l, dense_l, p_1m,
+                                               p_band, band_row)
+    checkpoint_phase(dev)
+    cli_phase()
 
     dense_head = next(r for r in dense_rows
                       if tuple(r["shape"]) == HEADLINE_SHAPE
                       and r["dtype"] == "float32")
     band_head = next(r for r in band_rows if r["case"] == "100k K"
                      and r["dtype"] == "float32")
+    csr_head = next(r for r in csr_rows if r["case"] == "mittelmann-l K"
+                    and r["dtype"] == "float32")
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         {**_kernel_entry("dense_matvec", "tpdlp_torch/csrc/dense_matvec.cu",
@@ -1040,6 +1463,13 @@ def main() -> int:
                          band_head),
          "launches_certificates": band_certify,
          "csr_ms": band_head["csr_ms"], "shape": band_head["slabs"]},
+        {**_kernel_entry("csr_matvec", "tpdlp_torch/csrc/csr_matvec.cu",
+                         "tpdlp/ops/sparse.py:65", sparse_row["launches"],
+                         csr_rows, csr_head),
+         "replaces_note": "SparseOp.mv, an XLA BCOO product: no Pallas "
+                          "kernel",
+         "launches_sparse_1m": csr_launches_1m,
+         "shape": csr_head["shape"], "nnz": csr_head["nnz"]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -316,8 +316,13 @@ def test_build_device_operator_band():
     assert isinstance(op, BandOp) and op.shape == p.shape
     np.testing.assert_array_equal(c.numpy(), p.c)
     np.testing.assert_array_equal(u.numpy(), p.u)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_device_operator(p, torch.float64, "sparse", "cpu")
+    # The other layouts build too; an unknown one is refused.
+    from tpdlp_torch.ops.sparse import SparseOp
+
+    sp_op = build_device_operator(p, torch.float64, "sparse", "cpu")[0]
+    assert isinstance(sp_op, SparseOp) and sp_op.shape == p.shape
+    with pytest.raises(ValueError, match="unknown matrix_format"):
+        build_device_operator(p, torch.float64, "coo", "cpu")
     wide = tpdlp_torch.generate_feasible_lp(n=4000, m_ineq=100, m_eq=40,
                                             density=0.05, seed=0)
     with pytest.raises(ValueError, match="band-like"):

@@ -1,0 +1,135 @@
+"""The port's CLI (`python -m tpdlp_torch.cli.main`) end to end, as a
+subprocess on the CPU, beside the JAX CLI on the same folder (the JAX
+package's tests/test_cli.py flow): the CSV schema without pandas, the
+JAX CLI's status, k and j per file under fixed steps, the "Failed to load"
+row, and every flag of an unported option refused before the sweep with
+its ROADMAP.md item."""
+
+import csv
+import os
+import subprocess
+import sys
+
+import pytest
+
+import tpdlp_torch
+from tpdlp_torch.io.writer import write_mps
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEADER = ["File", "Objective", "Iterations (k)", "Restarts (n)",
+          "KKT Passes (j)", "Time (s)", "Status", "Sense"]
+
+
+def _run(module, args, cwd, device="cpu"):
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run(
+        [sys.executable, "-m", module, "--device", device, *args],
+        capture_output=True, text=True, timeout=600, env=env, cwd=cwd,
+    )
+
+
+@pytest.fixture(scope="module")
+def mps_folder(tmp_path_factory):
+    folder = tmp_path_factory.mktemp("cli_mps")
+    for s in range(2):
+        p = tpdlp_torch.generate_feasible_lp(n=20, m_ineq=12, m_eq=4, seed=s)
+        write_mps(p, str(folder / f"inst{s}.mps"))
+    (folder / "broken.mps").write_text("THIS IS NOT AN MPS FILE\n")
+    return folder
+
+
+def _read(out_dir):
+    with open(os.path.join(out_dir, "solver_results.csv")) as f:
+        header = next(csv.reader(f))
+        f.seek(0)
+        return header, {row["File"]: row for row in csv.DictReader(f)}
+
+
+FIXED_FLAGS = ["--tolerance", "1e-6", "--precondition",
+               "--primal_weight_update", "--max_kkt", "60000"]
+
+
+@pytest.mark.parametrize("fmt", [None, "sparse"])
+def test_cli_sweep_matches_jax_cli(mps_folder, tmp_path, fmt):
+    layout = [] if fmt is None else ["--matrix_format", fmt]
+    out_t, out_j = tmp_path / "torch", tmp_path / "jax"
+    rt = _run("tpdlp_torch.cli.main",
+              ["--instance_path", str(mps_folder), *FIXED_FLAGS, *layout,
+               "--output_path", str(out_t)], str(tmp_path))
+    assert rt.returncode == 0, rt.stderr[-2000:]
+    rj = _run("tpdlp.cli.main",
+              ["--instance_path", str(mps_folder), *FIXED_FLAGS, *layout,
+               "--output_path", str(out_j)], str(tmp_path))
+    assert rj.returncode == 0, rj.stderr[-2000:]
+    head_t, rows_t = _read(out_t)
+    head_j, rows_j = _read(out_j)
+    assert head_t == head_j == HEADER
+    assert set(rows_t) == set(rows_j) == {"inst0.mps", "inst1.mps",
+                                          "broken.mps"}
+    for name in ("inst0.mps", "inst1.mps"):
+        a, b = rows_t[name], rows_j[name]
+        assert a["Status"] == b["Status"] == "Solved"
+        for key in ("Iterations (k)", "Restarts (n)", "KKT Passes (j)",
+                    "Sense"):
+            assert a[key] == b[key], (name, key)
+        assert float(a["Objective"]) == pytest.approx(
+            float(b["Objective"]), abs=1e-5)
+    assert rows_t["broken.mps"]["Status"].startswith("Failed to load")
+    assert rows_t["broken.mps"]["Objective"] == "N/A"
+
+
+def test_cli_single_file_and_support_sparse(mps_folder, tmp_path):
+    out = tmp_path / "out"
+    r = _run("tpdlp_torch.cli.main",
+             ["--instance_path", str(mps_folder / "inst0.mps"),
+              "--support_sparse", "--precondition", "--adaptive_stepsize",
+              "--output_path", str(out)], str(tmp_path))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "Matrix format: auto" in r.stdout
+    _, rows = _read(out)
+    assert list(rows) == ["inst0.mps"] and rows["inst0.mps"][
+        "Status"] == "Solved"
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--fishnet"], 19),
+    (["--batch_solve"], 20),
+    (["--mesh", "2x2"], 21),
+    (["--presolve", "cpp"], 18),
+    (["--presolve", "python"], 18),
+])
+def test_unported_flags_exit_naming_their_item(mps_folder, tmp_path, flags,
+                                               item):
+    r = _run("tpdlp_torch.cli.main",
+             ["--instance_path", str(mps_folder), *flags,
+              "--output_path", str(tmp_path / "out")], str(tmp_path))
+    assert r.returncode != 0
+    assert f"item {item})" in r.stderr
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("device", ["cuda", "auto"])
+def test_escalation_tolerance_exits_naming_item_15(mps_folder, tmp_path,
+                                                   device):
+    """Below escalation_tol in fp32 (the CUDA default) the JAX package
+    escalates; the port's CLI refuses before it touches the device."""
+    r = _run("tpdlp_torch.cli.main",
+             ["--instance_path", str(mps_folder), "--tolerance", "1e-8",
+              "--output_path", str(tmp_path / "out")], str(tmp_path),
+             device=device)
+    assert r.returncode != 0 and "item 15)" in r.stderr
+
+
+def test_no_cuda_exits_without_cpu_fallback(mps_folder, tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    r = _run("tpdlp_torch.cli.main",
+             ["--instance_path", str(mps_folder),
+              "--output_path", str(tmp_path / "out")], str(tmp_path),
+             device="auto")
+    assert r.returncode != 0 and "CUDA" in r.stderr
+    assert not (tmp_path / "out").exists()

@@ -308,3 +308,123 @@ def test_certificates_fire_on_card(card):
     assert _kernels.launches["dense_matvec"] > before
     assert ru.status == tpdlp_torch.Status.DUAL_INFEASIBLE
     assert ri.status == tpdlp_torch.Status.PRIMAL_INFEASIBLE
+
+
+# ---------------------------------------------------------------------------
+# The sparse layouts: CSR (csr_matvec) and block-ELL on the card
+# ---------------------------------------------------------------------------
+
+def _random_sparse(m, n, density, seed):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    K = sp.random(m, n, density=density, random_state=rng, format="csr")
+    K.data = rng.standard_normal(K.nnz)
+    return K
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_kernel_matches_plain_on_card(card, dtype):
+    """Every lane-group size (rows of 1 to 200 nonzeros on average), empty
+    rows included: the twin's values within tolerance, one launch a call,
+    bit-identical repeats."""
+    for m, n, density in [(37, 23, 0.2), (1, 1, 1.0), (5000, 40, 0.02),
+                          (3000, 2000, 0.004), (500, 4000, 0.01),
+                          (200, 20000, 0.01), (7, 50000, 0.004)]:
+        K = _random_sparse(m, n, density, seed=m)
+        crow = torch.as_tensor(K.indptr.astype(np.int32), device=card)
+        col = torch.as_tensor(K.indices.astype(np.int32), device=card)
+        val = torch.as_tensor(K.data, dtype=dtype, device=card)
+        x = torch.randn(n, dtype=dtype, device=card)
+        before = _kernels.launches["csr_matvec"]
+        y = _kernels.csr_matvec(crow, col, val, x)
+        assert _kernels.launches["csr_matvec"] == before + 1
+        ref = _kernels.csr_matvec_plain(crow, col, val, x)
+        rel = float(((y - ref).abs() / (1 + ref.abs())).max())
+        assert rel < _tol(max(1, K.nnz // max(m, 1)), dtype), (m, n, rel)
+        assert torch.equal(y, _kernels.csr_matvec(crow, col, val, x))
+
+
+def test_csr_kernel_rejects_what_it_does_not_take(card):
+    crow = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    col = torch.tensor([0], dtype=torch.int32, device=card)
+    val = torch.ones(1, device=card)
+    before = _kernels.launches["csr_matvec"]
+    with pytest.raises(TypeError, match="int32"):
+        _kernels.csr_matvec(crow.long(), col, val, torch.ones(1, device=card))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        _kernels.csr_matvec(crow, col, val.half(),
+                            torch.ones(1, device=card).half())
+    with pytest.raises(ValueError, match="same CUDA device"):
+        _kernels.csr_matvec(crow, col, val, torch.ones(1))
+    assert _kernels.launches["csr_matvec"] == before
+
+
+@pytest.mark.parametrize("layout", ["sparse", "blocked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sparse_layouts_on_card_match_cpu_fp64(card, layout, dtype):
+    """Products, norms and scaling on the card against the operator's own
+    fp64 result on the CPU; two identical products and norms on the card
+    are bit-identical (no atomics in the sums)."""
+    from tpdlp_torch.ops.blocked import BlockEllOp
+    from tpdlp_torch.ops.sparse import SparseOp
+
+    cls = {"sparse": SparseOp, "blocked": BlockEllOp}[layout]
+    K = _random_sparse(700, 1300, 0.01, seed=5)
+    K[3, :] = 0.0  # an empty row
+    K.eliminate_zeros()
+    op = cls.from_scipy(K, dtype, device=card)
+    ref = cls.from_scipy(K, torch.float64, device="cpu")
+    rng = np.random.default_rng(6)
+    x, y = rng.standard_normal(1300), rng.standard_normal(700)
+    dr, dc = rng.uniform(0.5, 2, 700), rng.uniform(0.5, 2, 1300)
+
+    def on(v):
+        return torch.as_tensor(v, dtype=dtype, device=card)
+
+    def cpu(v):
+        return torch.as_tensor(v, dtype=torch.float64)
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    before = _kernels.launches["csr_matvec"]
+    for got, want in (
+            (op.mv(on(x)), ref.mv(cpu(x))),
+            (op.rmv(on(y)), ref.rmv(cpu(y))),
+            (op.row_abs_norms("inf"), ref.row_abs_norms("inf")),
+            (op.col_abs_norms(2.0), ref.col_abs_norms(2.0)),
+            (op.scale(on(dr), on(dc)).mv(on(x)),
+             ref.scale(cpu(dr), cpu(dc)).mv(cpu(x)))):
+        np.testing.assert_allclose(got.cpu().double().numpy(), want.numpy(),
+                                   rtol=tol, atol=tol)
+    launched = _kernels.launches["csr_matvec"] - before
+    assert launched == (3 if layout == "sparse" else 0)
+    assert float(op.row_abs_norms("inf")[3]) == 0.0
+    for f in (lambda: op.mv(on(x)), lambda: op.rmv(on(y)),
+              lambda: op.row_abs_norms("inf"),
+              lambda: op.col_abs_norms(1.0)):
+        assert torch.equal(f(), f())
+
+
+def test_sparse_and_auto_solves_on_card(card):
+    """mittelmann-s in fp32 through "sparse" twice (bit-identical, the
+    kernel's launches only) and through "auto": Solved, objectives within
+    the tolerance of the dense path's."""
+    (p,) = build_suite(("large",), names=("mittelmann-s",))
+    cfg = tpdlp_torch.SolverConfig(tol=1e-4, scaling="ruiz", adaptive=True,
+                                   primal_weight_update=True)
+    _kernels.reset_launches()
+    runs = [tpdlp_torch.solve(p, cfg, dtype=torch.float32, seed=0,
+                              matrix_format="sparse") for _ in range(2)]
+    assert _kernels.launches["csr_matvec"] > 0
+    assert _kernels.launches["dense_matvec"] == 0
+    assert runs[0].status == tpdlp_torch.Status.SOLVED
+    assert (runs[0].iterations, runs[0].objective) == (
+        runs[1].iterations, runs[1].objective)
+    assert np.array_equal(runs[0].x, runs[1].x)
+    dense = tpdlp_torch.solve(p, cfg, dtype=torch.float32, seed=0)
+    auto = tpdlp_torch.solve(p, cfg, dtype=torch.float32, seed=0,
+                             matrix_format="auto")
+    for r in (dense, auto):
+        assert r.status == tpdlp_torch.Status.SOLVED
+        assert abs(r.objective - runs[0].objective) <= 5e-4 * (
+            1 + abs(r.objective))

@@ -174,6 +174,8 @@ def test_build_targets_hopper_and_tracks_sources():
     replaces = {
         "dense_matvec.cu": "tpdlp/ops/pallas_dense.py::_matvec_kernel",
         "band_matvec.cu": "tpdlp/ops/band.py::_band_kernel",
+        # No TPU kernel: the JAX sparse operator's XLA product.
+        "csr_matvec.cu": "tpdlp/ops/sparse.py::SparseOp",
     }
     assert set(_kernels.SOURCES) == set(replaces)
     for src in _kernels.SOURCES:

@@ -207,3 +207,129 @@ def test_battery_cli_on_cpu(monkeypatch, tmp_path, capsys):
     assert json.loads(out.read_text())["rows"] == art["rows"]
     printed = capsys.readouterr().out
     assert '"matched": 3' in printed
+
+
+# ---------------------------------------------------------------------------
+# The MPS writer, netlib access and the vendored corpus
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("make", [
+    lambda m: m.generate_feasible_lp(n=30, m_ineq=12, m_eq=5, seed=4),
+    lambda m: m.generate_feasible_lp(n=25, m_ineq=8, m_eq=6, seed=2,
+                                     bounds="mixed"),
+    lambda m: m.generate_infeasible_lp(seed=1),
+], ids=["box", "mixed", "infeasible"])
+def test_write_mps_bytes_equal_jax(tmp_path, make):
+    from tpdlp.io.writer import write_mps as jax_write_mps
+    from tpdlp_torch.io.writer import write_mps
+
+    p = make(tpdlp_torch)
+    _same_problem(p, make(tpdlp))
+    write_mps(p, tmp_path / "port.mps")
+    jax_write_mps(p, tmp_path / "jax.mps")
+    assert (tmp_path / "port.mps").read_bytes() == (
+        tmp_path / "jax.mps").read_bytes()
+    # The round trip gives the problem back.
+    q = tpdlp_torch.read_mps(tmp_path / "port.mps")
+    np.testing.assert_array_equal(sp.csr_matrix(q.K).toarray(),
+                                  sp.csr_matrix(p.K).toarray())
+
+
+def test_netlib_vendored_afiro_offline():
+    from tpdlp.io import netlib as jax_netlib
+    from tpdlp_torch.io import netlib
+
+    path = netlib.vendored_path("afiro")
+    assert path is not None and pathlib.Path(path).is_relative_to(
+        ROOT / "tpdlp_torch")
+    assert pathlib.Path(path).read_bytes() == pathlib.Path(
+        jax_netlib.vendored_path("afiro")).read_bytes()
+    assert netlib.vendored_path("adlittle") is None
+    assert netlib.fetch("afiro") == path
+    p = netlib.load("afiro")
+    assert p.name == "afiro" and p.known_objective == -4.6475314286e2
+    assert netlib.known_objective("nope") is None
+    assert netlib.verify_objective("afiro", -464.7531428571)
+    assert not netlib.verify_objective("nope", 1.0)
+    with pytest.raises(netlib.ObjectiveMismatch):
+        netlib.verify_objective("afiro", -460.0)
+    assert (netlib.FEASIBLE, netlib.INFEASIBLE, netlib.KNOWN_OBJECTIVES) == (
+        jax_netlib.FEASIBLE, jax_netlib.INFEASIBLE,
+        jax_netlib.KNOWN_OBJECTIVES)
+
+
+def test_netlib_fetch_through_a_local_mirror(tmp_path):
+    """The network path against a loopback mirror (no outside host): a
+    gzipped payload under a name that is not vendored, then the cache."""
+    import gzip
+    import http.server
+    import threading
+
+    from tpdlp_torch.io import netlib
+
+    payload = gzip.compress(pathlib.Path(
+        netlib.vendored_path("afiro")).read_bytes())
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            if self.path != "/xfiro.mps.gz":
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        mirrors = [base + "/{name}.mps.gz"]
+        path = netlib.fetch("xfiro", cache_dir=str(tmp_path),
+                            mirrors=mirrors, timeout=10)
+        assert path == str(tmp_path / "xfiro.mps")
+        p = tpdlp_torch.read_mps(path)
+        assert p.K.shape == netlib.load("afiro").K.shape
+        got = netlib.fetch_all(["xfiro", "nothere"], cache_dir=str(tmp_path),
+                               mirrors=mirrors, timeout=10)
+        assert got == {"xfiro": path, "nothere": None}
+        with pytest.raises(netlib.NetlibUnavailable):
+            netlib.fetch("nothere", cache_dir=str(tmp_path),
+                         mirrors=mirrors, timeout=10)
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=5)
+    assert not thread.is_alive()
+
+
+def test_corpus_paths_equal_jax():
+    from tpdlp.bench import suite as jax_suite
+    from tpdlp_torch.bench import suite
+
+    for terminal in (False, True):
+        ours = [pathlib.Path(f).name
+                for f in suite.corpus_paths(terminal)]
+        theirs = [pathlib.Path(f).name
+                  for f in jax_suite.corpus_paths(terminal)]
+        assert ours == theirs and ours
+        for f in suite.corpus_paths(terminal):
+            assert pathlib.Path(f).is_relative_to(ROOT / "tpdlp_torch")
+            assert pathlib.Path(f).read_bytes() == (
+                JAX_INSTANCES / pathlib.Path(f).name).read_bytes()
+
+
+def test_build_corpus_equals_jax():
+    from tpdlp.bench import suite as jax_suite
+    from tpdlp_torch.bench import suite
+
+    ours, theirs = suite.build_corpus(), jax_suite.build_corpus()
+    assert [p.name for p in ours] == [p.name for p in theirs]
+    for p, q in zip(ours, theirs):
+        _same_problem(p, q)
+    real = suite.build_suite(("small", "real"))
+    assert [p.name for p in real] == [p.name for p in suite.build_suite(
+        ("small",))] + [p.name for p in ours]

@@ -178,11 +178,11 @@ def test_result_surface_equals_jax(jax_b0):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(matrix_format="sparse"), 13),
-    (dict(matrix_format="auto"), 14),
+    (dict(presolve="python"), 18),
+    (dict(presolve="cpp", matrix_format="sparse"), 18),
     (dict(presolve="cpp"), 18),
-    (dict(checkpoint_path="ckpt"), 16),
-    (dict(resume=True), 16),
+    (dict(mesh=object(), matrix_format="band"), 21),
+    (dict(mesh=object(), matrix_format="auto"), 21),
     (dict(mesh=object()), 21),
 ])
 def test_unported_options_raise(kw, item):

@@ -7,8 +7,10 @@ rows inequalities), same `SolverConfig`, `Status` codes and KKT-pass ledger.
 Entry points run on CUDA unless the caller passes device="cpu".  The K
 products run hand-written CUDA kernels, built with nvcc at first use:
 csrc/dense_matvec.cu for matrix_format="dense", csrc/band_matvec.cu for
-matrix_format="band".  Importing the package changes no global
-torch state.
+matrix_format="band", csrc/csr_matvec.cu for matrix_format="sparse";
+matrix_format="auto" times the candidate layouts and keeps the fastest.
+Front ends: `python -m tpdlp_torch.cli.main` and `tpdlp_torch.compat`.
+Importing the package changes no global torch state.
 """
 
 from tpdlp_torch.config import SolverConfig, Status
@@ -19,6 +21,7 @@ from tpdlp_torch.io.generator import (
     generate_unbounded_lp,
 )
 from tpdlp_torch.io.mps import mps_to_standard_form, read_mps
+from tpdlp_torch.io.writer import write_mps
 from tpdlp_torch.problem import LPProblem
 from tpdlp_torch.solver.solve import SolveResult, solve
 
@@ -30,6 +33,7 @@ __all__ = [
     "SolveResult",
     "read_mps",
     "mps_to_standard_form",
+    "write_mps",
     "generate_feasible_lp",
     "generate_banded_lp",
     "generate_infeasible_lp",

@@ -1,0 +1,234 @@
+"""CLI driver: sweep a folder of MPS instances and write a results CSV
+(counterpart of tpdlp/cli/main.py).
+
+    python -m tpdlp_torch.cli.main --instance_path <folder> [flags]
+
+The JAX CLI's flags, defaults and CSV schema (File, Objective, Iterations
+(k), Restarts (n), KKT Passes (j), Time (s), Status, Sense), with one
+try/except per instance so that one bad file does not stop the sweep: a
+file that does not parse gets a "Failed to load" row.  The CSV is written
+with the `csv` module.
+
+`--device` takes cpu, cuda or auto; auto means CUDA and exits with an
+error where there is none (no CPU fallback).  `--support_sparse` runs the
+layout autotune (matrix_format="auto"), and `--matrix_format` forces a
+layout.  Flags of options the port does not run yet exit non-zero before
+the sweep and name their ROADMAP.md item: --fishnet (19), --batch_solve
+(20), --mesh (21), --presolve other than off (18), and a tolerance below
+`escalation_tol` in fp32 on CUDA with no --dtype, which the JAX package
+would escalate (15).
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import sys
+
+CSV_FIELDS = ["File", "Objective", "Iterations (k)", "Restarts (n)",
+              "KKT Passes (j)", "Time (s)", "Status", "Sense"]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="tpdlp_torch: restarted-PDHG LP solver on CUDA"
+    )
+    p.add_argument("--device", type=str, choices=["cpu", "cuda", "auto"],
+                   default="auto",
+                   help="'cpu', 'cuda', or 'auto' (= cuda; default)")
+    p.add_argument("--instance_path", type=str, default="feasible",
+                   help="Folder containing .mps instances, or one .mps file")
+    p.add_argument("--tolerance", type=float, default=1e-4)
+    p.add_argument("--output_path", type=str, default="output")
+    p.add_argument("--precondition", action="store_true",
+                   help="Enable Ruiz preconditioning")
+    p.add_argument("--primal_weight_update", action="store_true")
+    p.add_argument("--adaptive_stepsize", action="store_true")
+    p.add_argument("--infeasibility_detect", action="store_true")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--support_sparse", action="store_true",
+                   help="Autotune the constraint operator's layout")
+    p.add_argument("--matrix_format", type=str, default=None,
+                   choices=["dense", "sparse", "band", "auto"],
+                   help="Force the operator layout (overrides "
+                        "--support_sparse)")
+    p.add_argument("--max_kkt", type=int, default=100_000)
+    p.add_argument("--time_limit", type=int, default=3600)
+    p.add_argument("--fishnet", action="store_true",
+                   help="Fishnet multi-point warm start (not ported yet)")
+    p.add_argument("--scaling", type=str, default=None,
+                   choices=["none", "ruiz", "ruiz+pc"],
+                   help="Override scaling method (--precondition => ruiz)")
+    p.add_argument("--adaptive_rule", type=str, default="reference",
+                   choices=["reference", "linesearch"])
+    p.add_argument("--infeas_tol", type=float, default=1e-4)
+    p.add_argument("--dtype", type=str, default=None,
+                   choices=[None, "float32", "float64"])
+    p.add_argument("--mesh", type=str, default=None,
+                   help="RxC mesh for a sharded solve (not ported yet)")
+    p.add_argument("--presolve", type=str, default="off",
+                   choices=["off", "python", "cpp"],
+                   help="presolve/postsolve round trip (not ported yet)")
+    p.add_argument("--compat_fr_zero", action="store_true",
+                   help="Reproduce the reference's FR-bound quirk "
+                        "(lo=0 instead of -inf)")
+    p.add_argument("--step_scheme", type=str, default="vanilla",
+                   choices=["vanilla", "halpern"],
+                   help="iteration scheme: restarted PDHG, or "
+                        "Halpern-anchored reflected PDHG (fixed steps only)")
+    p.add_argument("--batch_solve", action="store_true",
+                   help="solve the folder as one batch (not ported yet)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--abs_gap_termination", action="store_true",
+                   help="certify |gap| <= tol(1+|p|+|d|); the default "
+                        "matches the reference's signed gap")
+    return p.parse_args(argv)
+
+
+def _unported(args, cfg):
+    """The first flag naming an option the port does not run yet, as a
+    message with its ROADMAP.md item; None when there is none."""
+    flags = [
+        (args.fishnet, "--fishnet", 19),
+        (args.batch_solve, "--batch_solve", 20),
+        (args.mesh, "--mesh", 21),
+        (args.presolve != "off", f"--presolve {args.presolve}", 18),
+        # The JAX package escalates an fp32 solve below escalation_tol;
+        # the port's default dtype is fp32 on CUDA.
+        (args.device != "cpu" and args.dtype is None
+         and cfg.precision_escalation and cfg.tol < cfg.escalation_tol,
+         f"--tolerance {args.tolerance:g} (below escalation_tol "
+         f"{cfg.escalation_tol:g} in fp32, which needs precision "
+         "escalation)", 15),
+    ]
+    for on, what, item in flags:
+        if on:
+            return (f"{what} is not ported to tpdlp_torch yet (ROADMAP.md "
+                    f"queue 1 item {item})")
+    return None
+
+
+def _failed_row(name, msg):
+    return {
+        "File": name,
+        "Objective": "N/A",
+        "Iterations (k)": "N/A",
+        "Restarts (n)": "N/A",
+        "KKT Passes (j)": "N/A",
+        "Time (s)": "N/A",
+        "Status": msg if len(msg) <= 60 else msg[:57] + "...",
+        "Sense": "N/A",
+    }
+
+
+def write_csv(rows, path) -> None:
+    """The results table, one row per instance (the JAX CLI's columns)."""
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=CSV_FIELDS, lineterminator="\n")
+        w.writeheader()
+        w.writerows(rows)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+
+    from tpdlp_torch import SolverConfig, read_mps, solve
+    from tpdlp_torch.device import resolve_device
+
+    scaling = args.scaling
+    if scaling is None:
+        scaling = "ruiz" if args.precondition else "none"
+
+    cfg = SolverConfig(
+        tol=args.tolerance,
+        max_kkt=args.max_kkt,
+        time_limit=float(args.time_limit),
+        scaling=scaling,
+        adaptive=args.adaptive_stepsize,
+        adaptive_rule=args.adaptive_rule,
+        primal_weight_update=args.primal_weight_update,
+        infeasibility_detect=args.infeasibility_detect,
+        infeas_tol=args.infeas_tol,
+        step_scheme=args.step_scheme,
+        abs_gap_termination=args.abs_gap_termination,
+        verbose=args.verbose,
+    )
+    msg = _unported(args, cfg)
+    if msg is not None:
+        raise SystemExit(msg)
+
+    try:
+        dev = resolve_device("cuda" if args.device == "auto"
+                             else args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {args.device}: {e}")
+    name = f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" \
+        else ""
+    print(f"tpdlp_torch device: {dev}{name}")
+
+    dtype = None
+    if args.dtype:
+        dtype = getattr(torch, args.dtype)
+    matrix_format = args.matrix_format or (
+        "auto" if args.support_sparse else "dense")
+
+    print("\nConfiguration:")
+    for k, v in (
+        ("Instance path", args.instance_path),
+        ("Tolerance", args.tolerance),
+        ("Output path", args.output_path),
+        ("Time limit", f"{args.time_limit} seconds"),
+        ("Max KKT passes", args.max_kkt),
+        ("Scaling", scaling),
+        ("Primal weight update", args.primal_weight_update),
+        ("Adaptive stepsize", args.adaptive_stepsize),
+        ("Infeasibility detection", args.infeasibility_detect),
+        ("Matrix format", matrix_format),
+    ):
+        print(f"{k}: {v}")
+
+    if os.path.isfile(args.instance_path):
+        mps_files = [args.instance_path]
+    else:
+        folder = args.instance_path
+        mps_files = sorted(
+            os.path.join(folder, f)
+            for f in os.listdir(folder)
+            if f.endswith(".mps")
+        )
+
+    results = []
+    for path in mps_files:
+        fname = os.path.basename(path)
+        print(f"\nProcessing {path}...")
+        try:
+            problem = read_mps(path, compat_fr_zero=args.compat_fr_zero)
+        except Exception as e:  # one bad file must not stop the sweep
+            print(f"Failed to load MPS file: {path}. Error: {e}")
+            results.append(_failed_row(fname, f"Failed to load: {e}"))
+            continue
+        try:
+            result = solve(problem, cfg, dtype=dtype, device=dev,
+                           seed=args.seed, matrix_format=matrix_format)
+            print(f"Solver uses {result.solve_time:.4f} seconds.")
+            print(f"Status: {result.status_string}")
+            results.append(result.csv_row(fname))
+        except Exception as e:  # reported in the instance's row
+            print(f"Solver failed for {fname}. Error: {e}")
+            results.append(_failed_row(fname, f"Solver failed: {e}"))
+
+    os.makedirs(args.output_path, exist_ok=True)
+    if results:
+        csv_path = os.path.join(args.output_path, "solver_results.csv")
+        write_csv(results, csv_path)
+        print(f"\nResults saved to CSV: {csv_path}")
+    else:
+        print("No results to save.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdlp_torch"
-SOURCES = ("dense_matvec.cu", "band_matvec.cu")
+SOURCES = ("dense_matvec.cu", "band_matvec.cu", "csr_matvec.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -43,7 +43,7 @@ NVCC_FLAGS = (
 #: elements, so 16-byte vector loads stay aligned (4 fp32 / 2 fp64 per load).
 ROW_ALIGN = 4
 
-launches = {"dense_matvec": 0, "band_matvec": 0}
+launches = {"dense_matvec": 0, "band_matvec": 0, "csr_matvec": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -131,6 +131,12 @@ def _load():
                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             for fn in (lib.tpdlp_band_matvec_f32, lib.tpdlp_band_matvec_f64):
                 fn.argtypes = band_args
+                fn.restype = ctypes.c_int
+            csr_args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p]
+            for fn in (lib.tpdlp_csr_matvec_f32, lib.tpdlp_csr_matvec_f64):
+                fn.argtypes = csr_args
                 fn.restype = ctypes.c_int
             lib.tpdlp_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tpdlp_cuda_error_string.restype = ctypes.c_char_p
@@ -309,4 +315,80 @@ def band_matvec(slabs: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
                   y.data_ptr(), m, n, R, WB, stream)
     _check(code, "band_matvec launch")
     launches["band_matvec"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# CSR matvec (no TPU kernel behind it: the JAX sparse layout is plain XLA;
+# this kernel makes the port's sparse products replay bit for bit)
+# ---------------------------------------------------------------------------
+
+
+def csr_group(rows: int, nnz: int) -> int:
+    """Lanes per row of the csr_matvec kernel: the mean row length rounded
+    up to a power of two, between 2 and 32 (a function of the matrix alone,
+    so a matrix's products keep one summation order)."""
+    mean = -(-nnz // max(rows, 1))
+    return min(32, max(2, 1 << max(mean - 1, 0).bit_length()))
+
+
+def csr_matvec_plain(crow: torch.Tensor, col: torch.Tensor,
+                     val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = M x for the CSR arrays of M, in val's dtype: the plain PyTorch
+    twin of the csr_matvec kernel (each nonzero times its x entry, then a
+    sum over each row's segment; 0 for an empty row)."""
+    return torch.segment_reduce(val * x[col.long()], "sum", offsets=crow)
+
+
+def csr_matvec(crow: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """y (rows,) = M x for M in CSR form: crow (rows + 1,) int32 row
+    offsets, col (nnz,) int32 column indices in [0, x.numel()), val (nnz,).
+
+    CPU tensors take `csr_matvec_plain`.  CUDA tensors launch the
+    hand-written kernel (csrc/csr_matvec.cu) on the current stream; the
+    call does not synchronise."""
+    tensors = (crow, col, val, x)
+    if all(t.device.type == "cpu" for t in tensors):
+        return csr_matvec_plain(crow, col, val, x)
+    if val.device.type != "cuda" or any(t.device != val.device
+                                        for t in tensors):
+        raise ValueError(
+            f"csr_matvec: crow on {crow.device}, col on {col.device}, val "
+            f"on {val.device}, x on {x.device}; all must be on the same "
+            "CUDA device (or all on the CPU)"
+        )
+    if val.dtype not in (torch.float32, torch.float64) or x.dtype != val.dtype:
+        raise TypeError(
+            f"csr_matvec: dtypes {val.dtype}/{x.dtype}; the kernel takes "
+            "float32 or float64, the same for val and x"
+        )
+    if crow.dtype != torch.int32 or col.dtype != torch.int32:
+        raise TypeError(f"csr_matvec: index dtypes {crow.dtype}/{col.dtype}, "
+                        "expected int32")
+    if (crow.dim() != 1 or col.dim() != 1 or val.dim() != 1 or x.dim() != 1
+            or col.shape != val.shape or crow.numel() < 1):
+        raise ValueError(
+            f"csr_matvec: shapes crow {tuple(crow.shape)}, col "
+            f"{tuple(col.shape)}, val {tuple(val.shape)}, x {tuple(x.shape)}"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("csr_matvec: crow, col, val and x must be "
+                         "contiguous")
+    rows, nnz = crow.numel() - 1, val.numel()
+    if max(rows, nnz, x.numel()) >= 2**31:
+        raise ValueError("csr_matvec: dimension exceeds int32")
+    y = torch.empty(rows, dtype=val.dtype, device=val.device)
+    if rows == 0:
+        return y
+    lib = _load()
+    fn = (lib.tpdlp_csr_matvec_f32 if val.dtype == torch.float32
+          else lib.tpdlp_csr_matvec_f64)
+    stream = torch.cuda.current_stream(val.device).cuda_stream
+    with torch.cuda.device(val.device):
+        code = fn(crow.data_ptr(), col.data_ptr(), val.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), rows, csr_group(rows, nnz),
+                  stream)
+    _check(code, "csr_matvec launch")
+    launches["csr_matvec"] += 1
     return y

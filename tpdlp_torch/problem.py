@@ -225,12 +225,7 @@ def to_device_arrays(problem, dtype=torch.float32, *, device=None):
         coo = K.tocoo()
         m, n = coo.shape
         if triplet_transfer_wins(m * n, coo.nnz, dtype):
-            mat = torch.zeros((m, n), dtype=dtype, device=dev)
-            idx = (
-                torch.as_tensor(coo.row.astype(np.int64), device=dev),
-                torch.as_tensor(coo.col.astype(np.int64), device=dev),
-            )
-            mat.index_put_(idx, _vec(coo.data, dtype, dev), accumulate=True)
+            mat = dense_from_coo(coo, dtype, dev)
         else:
             mat = _vec(K.toarray(), dtype, dev)
     else:
@@ -238,6 +233,18 @@ def to_device_arrays(problem, dtype=torch.float32, *, device=None):
     op = ExactDenseOp.build(mat)
     del mat
     return (op, *device_vectors(problem, dtype, dev))
+
+
+def dense_from_coo(coo, dtype, device) -> torch.Tensor:
+    """The dense (m, n) matrix of COO triplets, scattered on `device`
+    (duplicates summed, as the JAX package's `.at[].add` does)."""
+    mat = torch.zeros(coo.shape, dtype=dtype, device=device)
+    idx = (
+        torch.as_tensor(coo.row.astype(np.int64), device=device),
+        torch.as_tensor(coo.col.astype(np.int64), device=device),
+    )
+    mat.index_put_(idx, _vec(coo.data, dtype, device), accumulate=True)
+    return mat
 
 
 def device_vectors(problem, dtype, device):

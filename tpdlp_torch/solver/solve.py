@@ -6,14 +6,23 @@ The device runs blocked restart cycles, or the per-iteration loop when
 certificates, `loop_mode="periter"` or a restart period above 256 ask for
 it; the host reads a few counters at most once per cycle and checks the
 wall clock between chunks of KKT passes, on the JAX package's chunk
-schedule (`chunk_kkt_init`, doubling up to `chunk_kkt_max`).  Options the
-port does not run yet raise `NotImplementedError` naming the ROADMAP.md
-item (queue 1) that brings them.
+schedule (`chunk_kkt_init`, doubling up to `chunk_kkt_max`).  With a
+`checkpoint_path` the state is saved after every chunk, and `resume=True`
+continues from the saved state.  Options the port does not run yet raise
+`NotImplementedError` naming the ROADMAP.md item (queue 1) that brings
+them.
+
+Left out on purpose, as ROADMAP.md's precision rule says: the JAX
+package's guards for the TPU's rounding matrix unit (`_mxu_noisy`, the
+warning and the escalation reroute for sparse layouts below 1e-4) and for
+its emulated fp64 (`_f64_guard`).  On the H100 an fp32 product is exact
+in every layout and fp64 is native.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -22,7 +31,9 @@ import torch
 
 from tpdlp_torch.config import SolverConfig, Status
 from tpdlp_torch.device import resolve_device
+from tpdlp_torch.ops.autotune import choose_operator
 from tpdlp_torch.ops.band import BandOp
+from tpdlp_torch.ops.sparse import SparseOp
 from tpdlp_torch.problem import (
     as_problem,
     device_problem,
@@ -30,6 +41,7 @@ from tpdlp_torch.problem import (
     to_device_arrays,
 )
 from tpdlp_torch.scaling.ruiz import scale_problem
+from tpdlp_torch.solver.checkpoint import load_state, npz_path, save_state
 from tpdlp_torch.solver.loop import final_eval, read_ints, run_chunk
 from tpdlp_torch.solver.power_iteration import spectral_norm_estimate
 from tpdlp_torch.solver.state import init_state
@@ -106,15 +118,20 @@ def eta_omega_of(pb, seed: int, cfg: SolverConfig, om0=None):
 
 def build_device_operator(problem, dtype, matrix_format: str = "dense",
                           device=None):
-    """Single-device operator + (c, q, l, u) for the chosen layout.
+    """Single-device operator + (c, q, l, u) for the chosen layout:
+    "dense" (ExactDenseOp), "sparse" (SparseOp, CSR), "band" (BandOp;
+    ValueError when K is not band-like) or "auto" (the fastest candidate,
+    ops/autotune.py).
 
-    The band layout builds its operator from K's triplets and never
-    materialises the dense matrix: it exists for instances whose dense
-    form does not fit on the device."""
+    Layouts other than dense build their operator from K's triplets and
+    never materialise the dense matrix: they exist for instances whose
+    dense form does not fit on the device."""
     dev = resolve_device(device)
     if matrix_format == "dense":
         return to_device_arrays(problem, dtype, device=dev)
-    if matrix_format == "band":
+    if matrix_format == "sparse":
+        op = SparseOp.from_scipy(problem.K, dtype, device=dev)
+    elif matrix_format == "band":
         op = BandOp.from_scipy(problem.K, dtype, device=dev)
         if op is None:
             raise ValueError(
@@ -122,8 +139,11 @@ def build_device_operator(problem, dtype, matrix_format: str = "dense",
                 "row-group's column span exceeds the window "
                 "budget); use 'auto' or 'sparse'"
             )
-        return (op, *device_vectors(problem, dtype, dev))
-    raise _format_error(matrix_format)
+    elif matrix_format == "auto":
+        op, _ = choose_operator(problem.K, dtype, device=dev)
+    else:
+        raise ValueError(f"unknown matrix_format: {matrix_format!r}")
+    return (op, *device_vectors(problem, dtype, dev))
 
 
 def _device_arrays(problem, dtype, dev, op_cache, matrix_format):
@@ -181,6 +201,21 @@ def _prepare(problem, dtype, dev, op_cache, matrix_format, ineq_mask, seed,
     return pb, init_state(pb, eta0, omega0, x0, y0), t_arrays
 
 
+def _resumed_state(path, pb, cfg: SolverConfig, dtype, dev):
+    """The checkpointed state on the device, its anchor products
+    recomputed from the operator (they must equal K x_restart and
+    K'y_restart; older checkpoints lack them).  Under Halpern the
+    restart baseline is zeroed, so the criterion re-baselines at the next
+    restart, as the JAX package does."""
+    st = load_state(path, dtype=dtype, device=dev)
+    st = st.replace(kx_restart=pb.op.mv(st.x_restart),
+                    kty_restart=pb.op.rmv(st.y_restart))
+    if cfg.step_scheme == "halpern":
+        st = st.replace(kkt_first=torch.zeros_like(st.kkt_first),
+                        fp_res=torch.zeros_like(st.fp_res))
+    return st
+
+
 def _extract(pb, st, use_prev: bool = False):
     """Unscaled solution and objective (x = d_col x_s, y = d_row y_s).
 
@@ -191,8 +226,8 @@ def _extract(pb, st, use_prev: bool = False):
     return x, y, torch.dot(pb.c0, x)
 
 
-#: Operator layouts not ported yet, by ROADMAP.md item.
-_FORMAT_ITEMS = {"sparse": 13, "auto": 14}
+#: The operator layouts `matrix_format` names.
+MATRIX_FORMATS = ("dense", "sparse", "band", "auto")
 
 
 def _unported(what: str, item: int):
@@ -202,23 +237,13 @@ def _unported(what: str, item: int):
     )
 
 
-def _format_error(matrix_format: str) -> Exception:
-    if matrix_format in _FORMAT_ITEMS:
-        return _unported(f"matrix_format={matrix_format!r}",
-                         _FORMAT_ITEMS[matrix_format])
-    return ValueError(f"unknown matrix_format: {matrix_format!r}")
-
-
-def _check_ported(cfg: SolverConfig, mesh, matrix_format, presolve,
-                  checkpoint_path, resume):
+def _check_ported(mesh, matrix_format, presolve):
     if mesh is not None:
         raise _unported("solve(mesh=...)", 21)
-    if matrix_format not in ("dense", "band"):
-        raise _format_error(matrix_format)
+    if matrix_format not in MATRIX_FORMATS:
+        raise ValueError(f"unknown matrix_format: {matrix_format!r}")
     if presolve != "off":
         raise _unported(f"presolve={presolve!r}", 18)
-    if checkpoint_path is not None or resume:
-        raise _unported("checkpoint/resume", 16)
 
 
 def _as_dtype(dtype) -> torch.dtype:
@@ -249,8 +274,10 @@ def solve(
     """Solve a standard-form LP with restarted PDHG.
 
     `device`: None means CUDA (raises when there is none); pass "cpu" to
-    run on the CPU.  `matrix_format`: "dense" (ExactDenseOp) or "band"
-    (BandOp; ValueError when K is not band-like).  `dtype`: None means fp32 on CUDA and fp64 on the CPU.
+    run on the CPU.  `matrix_format`: "dense" (ExactDenseOp), "sparse"
+    (SparseOp, CSR), "band" (BandOp; ValueError when K is not band-like)
+    or "auto" (the fastest of the candidate layouts, ops/autotune.py).
+    `dtype`: None means fp32 on CUDA and fp64 on the CPU.
     `problem`: an LPProblem of this package or any object with its fields
     (the JAX package's LPProblem included).
 
@@ -260,13 +287,17 @@ def solve(
     across solves of problems with the same K; the built operator is kept
     under (matrix_format, dtype, device, shape).  `omega0` pins the initial
     primal weight.
+
+    `checkpoint_path`: the state is saved there (an .npz file) after every
+    chunk.  `resume=True` with an existing checkpoint continues from it:
+    the problem, config and layout must be the ones it was written with
+    (a checkpoint of the JAX package's `solve` loads too).
     """
     start = time.perf_counter()
     cfg = config
     problem = as_problem(problem)
     problem.validate()
-    _check_ported(cfg, mesh, matrix_format, presolve, checkpoint_path,
-                  resume)
+    _check_ported(mesh, matrix_format, presolve)
     dev = resolve_device(device)
 
     if dtype is None:
@@ -300,6 +331,10 @@ def solve(
     pb, st, t_arrays = _prepare(problem, dtype, dev, op_cache,
                                 matrix_format, mask, seed, x0t, y0t, om0,
                                 cfg)
+    will_resume = bool(resume and checkpoint_path
+                       and os.path.exists(npz_path(checkpoint_path)))
+    if will_resume:
+        st = _resumed_state(checkpoint_path, pb, cfg, dtype, dev)
     # Never run a chunk when the wall clock was spent by the time the
     # arrays reached the device (where the JAX package checks it).
     budget_spent = t_arrays - start + time_used >= cfg.time_limit
@@ -307,6 +342,8 @@ def solve(
     history = [] if log_history else None
 
     def probe(st):
+        if checkpoint_path is not None:
+            save_state(st, checkpoint_path)
         if history is None and not cfg.verbose:
             return read_ints(st.j, st.status)
         vals = read_ints(st.j, st.status, st.k, st.n_restarts)
@@ -332,7 +369,14 @@ def solve(
     chunk = cfg.chunk_kkt_init
     planned = 0
     j_done, status_now = 0, int(Status.RUNNING)
-    if not budget_spent:
+    # Fresh and warm states start at t == 0 and blocked chunks exit at a
+    # cycle boundary, so every chunk is aligned except the first one after
+    # a resume (the checkpoint's t is arbitrary).
+    aligned = not will_resume
+    if will_resume:
+        j_done, status_now = read_ints(st.j, st.status)
+        planned = j_done
+    elif not budget_spent:
         # The first chunk runs right after preprocessing, with no clock
         # check in between (the JAX package fuses the two).
         planned = min(cfg.max_kkt, chunk)
@@ -347,9 +391,10 @@ def solve(
             break
         planned = min(cfg.max_kkt, planned + chunk)
         chunk = min(chunk * 2, cfg.chunk_kkt_max)
-        # Blocked chunks exit at a cycle boundary; a per-iteration chunk
-        # may stop mid-cycle, and its runner reads t itself.
-        st = run_chunk(st, pb, planned, cfg, aligned=True)
+        # A per-iteration chunk may stop mid-cycle; its runner reads t
+        # itself.
+        st = run_chunk(st, pb, planned, cfg, aligned=aligned)
+        aligned = True
         j_done, status_now = probe(st)
 
     status = Status(status_now)
