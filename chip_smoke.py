@@ -85,16 +85,44 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 10. checkpoint — mittelmann-s stopped by a KKT budget with a checkpoint,
              then resumed: the uninterrupted solve's k, n, j, objective and
              x bits.
-11. cli    — `python -m tpdlp_torch.cli.main` over the port's vendored
+11. autotune_stable — the banded 100k instance through the autotune three
+             times: each candidate's ms a K/K' pair, timed on the card
+             (captured chains, CUDA events), the same choice every call,
+             the autotune's launches its formula; the solve through "auto"
+             bit for bit the chosen layout's own run.
+12. cli    — `python -m tpdlp_torch.cli.main` over the port's vendored
              corpus with the reference-parity flags and the certificates,
              through the autotune (--support_sparse) and then dense: exit
              0, and every row's status the scipy linprog verdict.
+13. presolve — the same sweep (dense) with --presolve python, then cpp
+             (the C++ core's g++ build timed first): linprog's verdict on
+             every row, Solved objectives within 10*tol of the sweep
+             without presolve, both engines' reductions per file equal.
+14. refine — mittelmann-s at tol 1e-8 with dtype=None, so the solve
+             escalates to iterative refinement (fp32 solves on the card,
+             fp64 outer loop on the host), the refine_1e8 protocol with
+             |gap| termination and max_kkt 500,000, twice: Solved, the
+             criteria held by an fp64 host recomputation, the objective
+             within 1e-8 relative of HiGHS (run in a worker process
+             meanwhile), the same j and x bits in both runs; rounds, the
+             wall and its split between the inner device solves and the
+             host.
+15. refine_band — the same on banded 8192 with matrix_format="band"
+             (max_kkt 200,000), refined from the JAX package's fp32 stage
+             result (tests/data/jax_coarse_banded_8192.npz): every
+             correction through K2 (an elastic retry through CSR, as in
+             the JAX package), no K1 launch.
+16. fp64_tail — mittelmann-s at 1e-8 with escalation_mode="fp64_tail"
+             (max_kkt 200,000): the fp32 and the fp64 stage apart (k, j,
+             wall, launches), the status the JAX package's CPU run gives
+             (Solved), held to the criteria on the host.
 
 Every solve's kernel launches are held to the count the code implies: two
 per issued iteration and per issued restart check, plus the power
-iteration's and init_state's; the other kernels must not launch.  Issued
-iterations are k, plus, when a certificate fires mid-cycle, the masked
-rest of that cycle; both are printed.
+iteration's and init_state's (an escalated solve: the sum over its inner
+solves); the other kernels must not launch.  Each phase's seconds are
+printed.  Issued iterations are k, plus, when a certificate fires
+mid-cycle, the masked rest of that cycle; both are printed.
 
 Then the kernel summary line, the card's `nvidia-smi` name and power limit,
 and last {"ok": true, "device": {...}}.  Needs one CUDA device; exits
@@ -119,9 +147,13 @@ import torch
 TOL = 1e-4
 MAX_KKT = 100_000
 KERNEL_SHAPES = [(27, 51), (2000, 700), (257, 2049), (16, 9000),
-                 (2000, 5000), (5000, 2000), (8000, 20000), (20000, 8000)]
+                 (2000, 5000), (5000, 2000), (8000, 20000), (20000, 8000),
+                 (2000, 6500), (6500, 2000)]
 #: The main path's shape the kernel summary line reports (mittelmann-s K).
 HEADLINE_SHAPE = (2000, 5000)
+#: Refinement's slack form K_aug = [G -I; A 0] of mittelmann-s (1500
+#: inequality rows): the operator the correction rounds launch K1 on.
+KAUG_SHAPE = (2000, 6500)
 FP64_SHAPE = (2000, 5000)
 TIMED_LAUNCHES = 25
 #: K/K' pairs per loop timing (2 launches each).
@@ -130,7 +162,8 @@ LOOP_PAIRS = 50
 #: the host's time to queue the loop's launches).
 LOOP_SPIN_CYCLES = 20_000_000
 #: Dense (K, K') shape pairs timed as a loop.
-LOOP_SHAPES = [((2000, 5000), (5000, 2000)), ((8000, 20000), (20000, 8000))]
+LOOP_SHAPES = [((2000, 5000), (5000, 2000)), ((8000, 20000), (20000, 8000)),
+               ((2000, 6500), (6500, 2000))]
 #: The band path's instance (tpdlp_torch/bench/band_scale.py's defaults):
 #: n, m_ineq, m_eq, bandwidth.
 BAND_100K = (100_000, 75_000, 25_000, 105)
@@ -139,7 +172,10 @@ BAND_100K = (100_000, 75_000, 25_000, 105)
 BAND_RANDOM = [(5001, 777, 128), (30001, 40003, 2048)]
 #: KKT budgets of the band path's two profiled solves; their difference is
 #: the steady loop, without the operator build and the preprocessing.
-BAND_PROFILE_KKT = (2000, 4000)
+BAND_PROFILE_KKT = (1000, 2000)
+#: KKT budget of the profiled mittelmann-s solve with the certificates
+#: (about 300 iterations: the profile reads per-iteration figures).
+PROFILE_CERT_KKT = 600
 #: The band cross check's instance (small enough to hold dense).
 BAND_CROSS = (8192, 4096, 2048, 65)
 #: The infeasibility battery's rows: (dtype, KKT budget, must certify).  The
@@ -155,14 +191,14 @@ BATTERY = {
     "synth_unbounded_n5000_s7": ("float32", MAX_KKT, True),
     "synth_infeasible_n40_m11_s0": ("float64", MAX_KKT, True),
     "synth_infeasible_n757_m281_s1": ("float64", MAX_KKT, True),
-    "synth_infeasible_n5000_m1501_s7": ("float32", 15_000, False),
-    "synth_infeasible_n10000_m3001_s7": ("float32", 15_000, False),
+    "synth_infeasible_n5000_m1501_s7": ("float32", 4_000, False),
+    "synth_infeasible_n10000_m3001_s7": ("float32", 4_000, False),
 }
 #: The certificate families on (the battery's and the certify phase's).
 CERTIFICATES = dict(infeasibility_detect=True, normalized_certificates=True)
 #: Seconds each linprog method may take on one battery row; the oracles run
 #: in worker processes beside the card's solves.
-ORACLE_SECONDS = 150.0
+ORACLE_SECONDS = 110.0
 ORACLE_WORKERS = 3
 
 #: The sparse path's large instance: about 10M nonzeros, 1.6 TB as a
@@ -175,9 +211,33 @@ SPARSE_1M = dict(n=1_000_000, m_ineq=300_000, m_eq=100_000, density=2.5e-5,
 EMPTY_SEGMENTS = dict(n=2000, m_ineq=600, m_eq=200, density=0.002, seed=0)
 #: KKT budget of the first of the checkpoint phase's two solves.
 CHECKPOINT_SPLIT = 600
-#: Pass pairs of one autotune timing chain (ops/autotune.py: kkt_passes,
-#: chains of lo and 6 lo passes, each run twice).
-AUTOTUNE_LO = 10
+#: Calls of the autotune on banded 100k whose choices must agree.
+AUTOTUNE_CALLS = 3
+#: High accuracy: the refine_1e8 protocol's tolerance under |gap|
+#: termination (`--abs_gap`), which certifies the objective (the signed
+#: gap passes every primal and dual feasible pair).  refine's budget: the
+#: round budgets grow with it (max_kkt / 12, 45% of what remains), and at
+#: 200,000 mittelmann-s stops at KKT_LIMIT in both packages (PERF.md §6).
+HIGH_TOL = 1e-8
+REFINE_KKT = 500_000
+#: refine_band's budget and start: banded 8192 refined from the JAX
+#: package's fp32 stage result (tests/jax_reference_high_accuracy.py
+#: coarse-band), from which both packages certify; from the card's own
+#: coarse result both stall (ROADMAP.md queue 3).
+REFINE_BAND_KKT = 200_000
+REFINE_BAND_START = "tests/data/jax_coarse_banded_8192.npz"
+BAND_8192 = dict(n=8192, m_ineq=4096, m_eq=2048, bandwidth=65, seed=2)
+#: The fp64 tail's budget, and the JAX package's status for the phase's
+#: instance, config and budget from its own run on the CPU (PERF.md §6,
+#: tests/jax_reference_high_accuracy.py tail --lift-guard).
+TAIL_KKT = 200_000
+#: At 200,000 the JAX fp64 stage (its TPU element guard lifted: as
+#: shipped it skips the stage on mittelmann-s) is Solved at j 165,967; at
+#: 100,000 it stops at KKT_LIMIT.
+TAIL_JAX_STATUS = "SOLVED"
+#: Seconds HiGHS may take per method on an oracle of the high-accuracy
+#: phases (it runs in a worker process from the end of the kernel timings).
+HIGHS_SECONDS = 900.0
 
 #: Data-sheet rates by card: HBM bytes/s, fp32 and fp64 flop/s outside the
 #: tensor cores (NVIDIA data sheets; SXM unless the name says otherwise).
@@ -679,7 +739,7 @@ def band_phase(dev, p):
     if peak - mem_before > 3 * stored:
         raise AssertionError(
             f"{p.name}: peak {peak / 1e9} GB above 3 copies of the slabs")
-    return row, launches["band_matvec"]
+    return row, launches["band_matvec"], r
 
 
 def _counted_solve(dev, p, cfg, dtype=torch.float32, **solve_kw):
@@ -823,6 +883,7 @@ def _certify(dev, p_band, band_blocked, battery, oracles):
     # The battery, each row's verdict held to the scipy linprog oracle's.
     # A row linprog leaves undecided within ORACLE_SECONDS per method is
     # held to the verdict its construction plants, and says so.
+    decided_rows = {}
     for name, prob, planted in battery:
         dtype, max_kkt, certifies = BATTERY[name]
         cfg = B.battery_config(max_kkt=max_kkt)
@@ -830,6 +891,7 @@ def _certify(dev, p_band, band_blocked, battery, oracles):
                                              getattr(torch, dtype))
         oracle, oracle_s = oracles[name].result()
         decided = oracle in (0, 2, 3)
+        decided_rows[name] = (decided, oracle_s)
         want = B.EXPECT[planted]
         emit("certify_battery", **_certify_row(
             name, dtype, "dense_matvec", cfg, r, wall, kl, issued),
@@ -843,6 +905,11 @@ def _certify(dev, p_band, band_blocked, battery, oracles):
         if wrong or (certifies and r.status != want):
             raise AssertionError(f"{name} {dtype}: {r.status_string}, "
                                  f"expected {want.describe()}")
+    emit("battery_oracles", seconds_per_method=ORACLE_SECONDS,
+         decided=sorted(n for n, (d, _) in decided_rows.items() if d),
+         undecided=sorted(n for n, (d, _) in decided_rows.items() if not d),
+         slowest_decided_s=max((s for d, s in decided_rows.values() if d),
+                               default=None))
     return launches["certificates"], launches["band_certificates"]
 
 
@@ -879,12 +946,16 @@ def _profile_solve(dev, p, kernel, max_kkt, extra=None, **solve_kw):
         wall_us = (time.perf_counter() - t0) * 1e6
     counted = K.launches[kernel] - before
     spans, by_name, kernel_events = [], {}, 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # The trace's raw records: prof.events() first builds a Python event
+    # tree, about 70 µs an event (these traces hold up to 240,000).
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        kernel_events += kernel in e.name
+        start, us = e.start_ns() / 1e3, e.duration_ns() / 1e3
+        spans.append((start, start + us))
+        name = e.name()
+        by_name[name] = by_name.get(name, 0.0) + us
+        kernel_events += kernel in name
     busy = _busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     kernel_us = sum(v for k, v in by_name.items() if kernel in k)
@@ -916,8 +987,8 @@ def profile_phase(dev, p_band):
 
     (p,) = build_suite(("large",), names=("mittelmann-s",))
     loops = {"blocked": _profile_solve(dev, p, "dense_matvec", MAX_KKT),
-             "certificates": _profile_solve(dev, p, "dense_matvec", MAX_KKT,
-                                            CERTIFICATES)}
+             "certificates": _profile_solve(dev, p, "dense_matvec",
+                                            PROFILE_CERT_KKT, CERTIFICATES)}
     emit("profile_periter", instance=p.name, **{
         way: {"k": v["k"], "device_events": v["events"],
               "device_events_per_iteration": v["events"] / v["k"],
@@ -1170,13 +1241,14 @@ def _sparse_solve_row(dev, p, cfg, kernel, way, **solve_kw):
     return r, row
 
 
-def sparse_phase(dev, p_l, dense_l, p_1m, p_band, band_row):
+def sparse_phase(dev, p_l, dense_l, p_1m):
     """The sparse and auto layouts at full size: mittelmann-l through CSR
     (against the dense phase's objective) and through the autotune, with
     both paths profiled; the sparse-1M instance through "auto" (which must
-    build nothing but CSR) and "sparse", bit-identical; the banded 100k
-    instance through the autotune; the empty-segment LP through CSR.
-    Returns (the mittelmann-l CSR row, the sparse-1M CSR launches)."""
+    build nothing but CSR) and "sparse", bit-identical; the empty-segment
+    LP through CSR (the banded 100k instance through the autotune is the
+    autotune_stable phase).  Returns (the mittelmann-l CSR row, the
+    sparse-1M CSR launches)."""
     from tpdlp_torch import generate_feasible_lp
 
     cfg = _main_cfg()
@@ -1235,33 +1307,6 @@ def sparse_phase(dev, p_l, dense_l, p_1m, p_band, band_row):
         raise AssertionError("sparse-1M: the two solves differ")
     torch.cuda.empty_cache()
 
-    # banded 100k through the autotune; where it picks band, the band
-    # phase's run exactly.
-    label, cache, _ = _autotuned(dev, p_band)
-    kernel = {"band": "band_matvec", "sparse": "csr_matvec"}.get(label)
-    if kernel is None and label != "blocked":
-        raise AssertionError(f"{p_band.name}: auto chose {label}")
-    if kernel is None:  # block-ELL runs no kernel of its own
-        r, wall, kl, issued = _counted_solve(dev, p_band, cfg,
-                                             matrix_format="auto",
-                                             op_cache=cache)
-        check = host_residuals(p_band, r.x, r.y)
-        emit("sparse", instance=p_band.name, way="auto (blocked)",
-             status=r.status_string, k=r.iterations, launches=kl, **check)
-        _check_solution(f"{p_band.name} auto", r, check)
-    else:
-        r, _ = _sparse_solve_row(dev, p_band, cfg, kernel,
-                                 f"auto ({label})", matrix_format="auto",
-                                 op_cache=cache)
-    if label == "band" and (r.iterations, r.restarts, r.kkt_passes,
-                            r.objective) != (
-            band_row["k"], band_row["n"], band_row["j"],
-            band_row["objective"]):
-        raise AssertionError(f"{p_band.name}: auto (band) differs from the "
-                             "band phase")
-    del cache
-    torch.cuda.empty_cache()
-
     p_e = generate_feasible_lp(**EMPTY_SEGMENTS)
     p_e.name = "empty-segments n2000"
     K_e = sp.csr_matrix(p_e.K)
@@ -1312,60 +1357,382 @@ def checkpoint_phase(dev):
         raise AssertionError("checkpoint: the resumed solve differs")
 
 
-def cli_phase():
-    """python -m tpdlp_torch.cli.main over the port's vendored corpus with
-    the reference-parity flags, through the autotune and then dense: exit
-    0, a status in every row, and each row's status the scipy linprog
-    verdict (Solved, PRIMAL_INFEASIBLE or DUAL_INFEASIBLE)."""
+#: The CLI phases' reference-parity flags (with the certificates).
+CLI_FLAGS = ["--precondition", "--adaptive_stepsize", "--primal_weight_update",
+             "--infeasibility_detect"]
+
+
+def _cli_sweep(extra, oracle, files, tag):
+    """One `python -m tpdlp_torch.cli.main` sweep of the vendored corpus
+    with CLI_FLAGS and `extra`: exit 0, a row per file, each row's status
+    the linprog verdict.  Returns ({file: row}, wall seconds)."""
     import csv
     import os
 
-    from tpdlp_torch import Status, read_mps
-    from tpdlp_torch.bench.infeasibility import oracle_status
+    from tpdlp_torch import Status
     from tpdlp_torch.bench.suite import INSTANCES_DIR
     from tpdlp_torch.ops import _kernels as K
 
     root = os.path.dirname(os.path.abspath(__file__))
     verdict = {0: Status.SOLVED, 2: Status.PRIMAL_INFEASIBLE,
                3: Status.DUAL_INFEASIBLE}
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpdlp_torch.cli.main", "--instance_path",
+             os.path.relpath(INSTANCES_DIR, root), *CLI_FLAGS, *extra,
+             "--output_path", out],
+            capture_output=True, text=True, timeout=600, cwd=root)
+        wall = time.perf_counter() - t0
+        rows = []
+        if proc.returncode == 0:
+            with open(f"{out}/solver_results.csv", newline="") as f:
+                rows = list(csv.DictReader(f))
+    got = {r["File"]: r for r in rows}
+    emit(tag, flags=extra, returncode=proc.returncode, wall_s=wall,
+         rows=[[r["File"], r["Status"], r["Iterations (k)"],
+                r["KKT Passes (j)"], r["Objective"]] for r in rows],
+         oracle={f: verdict.get(s, Status.RUNNING).describe()
+                 for f, s in oracle.items()})
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} {extra}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    if sorted(got) != files:
+        raise AssertionError(f"{tag} {extra}: rows {sorted(got)}")
+    for f in files:
+        want = verdict.get(oracle[f])
+        if want is None:
+            raise AssertionError(f"{tag}: linprog leaves {f} undecided")
+        if "N/A" in got[f].values() or got[f]["Status"] != (
+                want.describe()):
+            raise AssertionError(f"{tag} {extra}: {f} {got[f]}, linprog "
+                                 f"says {want.describe()}")
+    return got, wall
+
+
+def cli_phase():
+    """python -m tpdlp_torch.cli.main over the port's vendored corpus with
+    the reference-parity flags, through the autotune and then dense: exit
+    0, a status in every row, and each row's status the scipy linprog
+    verdict (Solved, PRIMAL_INFEASIBLE or DUAL_INFEASIBLE).  Returns (the
+    linprog statuses, the dense sweep's rows)."""
+    import os
+
+    from tpdlp_torch import read_mps
+    from tpdlp_torch.bench.infeasibility import oracle_status
+    from tpdlp_torch.bench.suite import INSTANCES_DIR
+
     files = sorted(f for f in os.listdir(INSTANCES_DIR) if f.endswith(".mps"))
     oracle = {f: oracle_status(read_mps(os.path.join(INSTANCES_DIR, f)),
                                ORACLE_SECONDS) for f in files}
-    flags = ["--instance_path", os.path.relpath(INSTANCES_DIR, root),
-             "--precondition", "--adaptive_stepsize",
-             "--primal_weight_update", "--infeasibility_detect"]
-    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rows = {}
     for layout in (["--support_sparse"], ["--matrix_format", "dense"]):
-        with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as out:
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "tpdlp_torch.cli.main", *flags,
-                 *layout, "--output_path", out],
-                capture_output=True, text=True, timeout=600, cwd=root)
-            wall = time.perf_counter() - t0
-            rows = []
-            if proc.returncode == 0:
-                with open(f"{out}/solver_results.csv", newline="") as f:
-                    rows = list(csv.DictReader(f))
-        got = {r["File"]: r for r in rows}
-        emit("cli", flags=layout, returncode=proc.returncode, wall_s=wall,
-             rows=[[r["File"], r["Status"], r["Iterations (k)"],
-                    r["KKT Passes (j)"], r["Objective"]] for r in rows],
-             oracle={f: verdict.get(s, Status.RUNNING).describe()
-                     for f, s in oracle.items()})
-        if proc.returncode != 0:
-            raise AssertionError(f"cli {layout}: exit {proc.returncode}\n"
-                                 f"{proc.stderr[-3000:]}")
-        if sorted(got) != files:
-            raise AssertionError(f"cli {layout}: rows {sorted(got)}")
-        for f in files:
-            want = verdict.get(oracle[f])
-            if want is None:
-                raise AssertionError(f"cli: linprog leaves {f} undecided")
-            if "N/A" in got[f].values() or got[f]["Status"] != (
-                    want.describe()):
-                raise AssertionError(f"cli {layout}: {f} {got[f]}, linprog "
-                                     f"says {want.describe()}")
+        rows[layout[-1]], _ = _cli_sweep(layout, oracle, files, "cli")
+    return oracle, rows["dense"]
+
+
+def autotune_stable_phase(dev, p_band, band_run):
+    """banded 100k through "auto" AUTOTUNE_CALLS times: each call's
+    candidates timed on the card (ms a K/K' pair) and its choice printed,
+    the calls' choices equal, each call's kernel launches the captured
+    chains' count (ops/autotune.py::autotune_launches per timed candidate
+    with a kernel); then the solve through "auto" with the chosen operator
+    bit for bit that layout's own run (the band phase's where band wins, a
+    "sparse" solve where CSR wins).  Returns the chosen label."""
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.ops.autotune import autotune_launches
+
+    kernel_of = {"dense": "dense_matvec", "band": "band_matvec",
+                 "sparse": "csr_matvec"}
+    labels, cache = [], None
+    for call in range(AUTOTUNE_CALLS):
+        del cache
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        label, cache, timings = _autotuned(dev, p_band)
+        launches = dict(K.launches)
+        expect = {k: 0 for k in launches}
+        for cand in timings:
+            if cand in kernel_of:
+                expect[kernel_of[cand]] += autotune_launches(1)
+        emit("autotune_stable", instance=p_band.name, call=call,
+             label=label, ms_per_pair={k: v * 1e3 for k, v in
+                                       timings.items()},
+             launches=launches, launches_expected=expect)
+        if launches != expect:
+            raise AssertionError(f"autotune call {call}: launches "
+                                 f"{launches}, expected {expect}")
+        labels.append(label)
+    if len(set(labels)) != 1:
+        raise AssertionError(f"{p_band.name}: auto chose {labels}")
+    label = labels[0]
+    cfg = _main_cfg()
+    kernel = kernel_of.get(label)
+    if kernel is None:  # block-ELL runs no kernel of its own
+        r, wall, kl, issued = _counted_solve(dev, p_band, cfg,
+                                             matrix_format="auto",
+                                             op_cache=cache)
+        check = host_residuals(p_band, r.x, r.y)
+        emit("sparse", instance=p_band.name, way="auto (blocked)",
+             status=r.status_string, k=r.iterations, launches=kl, **check)
+        _check_solution(f"{p_band.name} auto", r, check)
+        ref = _counted_solve(dev, p_band, cfg, matrix_format="auto",
+                             op_cache=cache)[0]
+    else:
+        r, _ = _sparse_solve_row(dev, p_band, cfg, kernel,
+                                 f"auto ({label})", matrix_format="auto",
+                                 op_cache=cache)
+        if label == "band":
+            ref = band_run
+        else:
+            del cache
+            torch.cuda.empty_cache()
+            cache = None
+            ref, _ = _sparse_solve_row(dev, p_band, cfg, kernel, label,
+                                       matrix_format=label)
+    same = ((r.iterations, r.restarts, r.kkt_passes, r.objective)
+            == (ref.iterations, ref.restarts, ref.kkt_passes, ref.objective)
+            and np.array_equal(r.x, ref.x))
+    emit("autotune_stable_solve", instance=p_band.name, label=label,
+         k=r.iterations, j=r.kkt_passes, objective=r.objective,
+         reference_k=ref.iterations, reference_objective=ref.objective,
+         bit_identical=same)
+    if not same:
+        raise AssertionError(f"{p_band.name}: auto ({label}) differs from "
+                             f"the {label} run")
+    del cache
+    torch.cuda.empty_cache()
+    return label
+
+
+def highs_objective(problem):
+    """(HiGHS optimum, seconds) of one instance, in a worker process."""
+    from tpdlp_torch.bench.refine_1e8 import oracle_objective
+
+    t0 = time.perf_counter()
+    obj = oracle_objective(problem, time_limit=HIGHS_SECONDS, cache=False)
+    return obj, time.perf_counter() - t0
+
+
+def _stage_launches(cfg, stages):
+    """K products the code implies for an escalated solve: each inner
+    solve's own count (expected_launches), summed."""
+    total = 0
+    for st in stages:
+        it = st["issued"]
+        total += (2 * it["iterations"] + 2 * it["restart_checks"]
+                  + 2 * cfg.power_iters + 1 + 2)
+    return total
+
+
+def _start_result(path):
+    """The SolveResult of a coarse stage saved by
+    tests/jax_reference_high_accuracy.py (x, y, k, n, j; Solved)."""
+    from pathlib import Path
+
+    from tpdlp_torch import SolveResult, Status
+
+    d = np.load(Path(__file__).resolve().parent / path)
+    return SolveResult(x=d["x"], y=d["y"], objective=0.0,
+                       iterations=int(d["k"]), restarts=int(d["n"]),
+                       kkt_passes=int(d["j"]), status=Status.SOLVED,
+                       solve_time=0.0, primal_res=0.0, dual_res=0.0, gap=0.0)
+
+
+def _high_accuracy_run(dev, p, cfg, kernel, start=None, **solve_kw):
+    """One dtype=None solve of `p` at cfg.tol (the escalation reroute),
+    counted: (result, wall, launches, its row).  With `start` (a coarse
+    stage's SolveResult), refinement runs from it: solve_refined with the
+    coarse stage handed back instead of solved."""
+    from tpdlp_torch import solve
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.solver.refine import _terminated, solve_refined
+    from tpdlp_torch.solver.refine import host_residuals as refine_res
+
+    def staged(problem, config, **kw):
+        if "+refine" in problem.name:
+            return solve(problem, config, **kw)
+        return start
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if start is None:
+        r = solve(p, cfg, device=dev, seed=0, **solve_kw)
+    else:
+        r = solve_refined(p, cfg, solve_fn=staged, device=dev, seed=0,
+                          **solve_kw)
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    esc = r.escalation or {}
+    stages = esc.get("stages", [])
+    K64 = sp.csr_matrix(p.K).astype(np.float64)
+    res = refine_res(K64, p.c, p.q, p.l, p.u, p.m_ineq,
+                     np.asarray(r.x, np.float64), np.asarray(r.y, np.float64))
+    q_n, c_n = float(np.linalg.norm(p.q)), float(np.linalg.norm(p.c))
+    by_dtype = {}
+    for st in stages:
+        d = by_dtype.setdefault(st["dtype"], {"k": 0, "j": 0, "wall_s": 0.0,
+                                              "launches": {}})
+        d["k"] += st["k"]
+        d["j"] += st["j"]
+        d["wall_s"] += st["wall_s"]
+        for name_, v in st["launches"].items():
+            if v:
+                d["launches"][name_] = d["launches"].get(name_, 0) + v
+
+    def expected(st):
+        # A coarse stage handed back ran nothing on the card.
+        handed = start is not None and st["stage"] == "coarse"
+        return 0 if handed else _stage_launches(cfg, [st])
+
+    row = {
+        "instance": p.name, "shape": list(p.shape), "tol": cfg.tol,
+        "route": esc.get("route"), "status": r.status_string,
+        "k": r.iterations, "n": r.restarts, "j": r.kkt_passes,
+        "objective": r.objective, "wall_s": wall,
+        "rounds": esc.get("rounds"), "inner_solves": len(stages),
+        "inner_s": sum(st["wall_s"] for st in stages),
+        "host_s": wall - sum(st["wall_s"] for st in stages),
+        "by_dtype": by_dtype, "launches": launches,
+        "launches_expected": sum(expected(st) for st in stages),
+        "stages": [[st["stage"], st["dtype"], st["status"], st["k"],
+                    st["j"], st["wall_s"]] for st in stages],
+        "host_rel_primal": res.primal_res / (1 + q_n),
+        "host_rel_dual": res.dual_res / (1 + c_n),
+        "host_rel_gap": res.gap / (1 + abs(res.prim_obj)
+                                   + abs(res.adjusted_dual)),
+        "host_certified": _terminated(res, q_n, c_n, cfg.tol,
+                                      cfg.abs_gap_termination),
+    }
+    # Each inner solve's products in `kernel`; an elastic retry's in CSR
+    # (its layout in both packages, solver/refine.py), never another.
+    wrong = []
+    for st in stages:
+        want = "csr_matvec" if st["stage"].endswith("elastic") else kernel
+        if any(v for k, v in st["launches"].items() if k != want) or (
+                st["launches"][want] != expected(st)):
+            wrong.append(st["stage"])
+    if wrong or sum(launches.values()) != row["launches_expected"]:
+        emit("high_accuracy_launches", **row)
+        raise AssertionError(f"{p.name} {row['route']}: launches {launches}"
+                             f", expected {row['launches_expected']} in "
+                             f"{kernel} (stages {wrong})")
+    return r, wall, row
+
+
+def refine_phase(dev, name, p, oracle, kernel, max_kkt, start=None,
+                 **solve_kw):
+    """1e-8 through the default escalation (dtype=None on CUDA:
+    refinement), the refine_1e8 protocol with |gap| termination (Ruiz,
+    adaptive steps, PWU) and a budget of `max_kkt`, twice (from `start`,
+    a saved coarse stage, if given): Solved, the criteria held by an fp64
+    recomputation on the host, the objective within HIGH_TOL relative of
+    HiGHS (run in a worker process from the start), the same j and x bits
+    in both runs, every inner product in `kernel` (an elastic retry's in
+    CSR) and launches = the inner solves' formulas.  Returns the first
+    run's row."""
+    from tpdlp_torch import SolverConfig, Status
+
+    cfg = SolverConfig(tol=HIGH_TOL, scaling="ruiz", adaptive=True,
+                       primal_weight_update=True, max_kkt=max_kkt,
+                       abs_gap_termination=True)
+    s1 = _start_result(start) if start else None
+    (r, _, row), (r2, _, row2) = [
+        _high_accuracy_run(dev, p, cfg, kernel, s1, **solve_kw)
+        for _ in range(2)]
+    oracle_obj, oracle_s = oracle.result()
+    rel_err = (abs(r.objective - oracle_obj) / max(1.0, abs(oracle_obj))
+               if oracle_obj is not None else None)
+    same = (r.kkt_passes == r2.kkt_passes and r.iterations == r2.iterations
+            and np.array_equal(r.x, r2.x) and np.array_equal(r.y, r2.y))
+    emit(name, gap_criterion="abs", max_kkt=max_kkt, start=start, **row,
+         oracle_obj=oracle_obj, oracle_s=oracle_s, rel_err=rel_err,
+         second_wall_s=row2["wall_s"], second_j=r2.kkt_passes,
+         replay_bit_identical=same)
+    if row["route"] != "refine" or r.status != Status.SOLVED:
+        raise AssertionError(f"{name}: {r.status_string} by "
+                             f"{row['route']}")
+    if not row["host_certified"]:
+        raise AssertionError(f"{name}: Solved, host residuals {row}")
+    if rel_err is None or rel_err > HIGH_TOL:
+        raise AssertionError(f"{name}: objective {r.objective}, HiGHS "
+                             f"{oracle_obj}")
+    if not same:
+        raise AssertionError(f"{name}: the two runs differ")
+    return row
+
+
+def fp64_tail_phase(dev, p, refine_row):
+    """mittelmann-s at 1e-8 with escalation_mode="fp64_tail" (max_kkt
+    TAIL_KKT): the fp32 and fp64 stages' k, j, walls and K1 launches,
+    each stage's launches its formula, the status the JAX package gives on
+    the CPU (TAIL_JAX_STATUS), a Solved point held to the criteria on the
+    host; its wall beside the refine phase's."""
+    from tpdlp_torch import SolverConfig, Status
+
+    cfg = SolverConfig(tol=HIGH_TOL, scaling="ruiz", adaptive=True,
+                       primal_weight_update=True, max_kkt=TAIL_KKT,
+                       escalation_mode="fp64_tail")
+    r, wall, row = _high_accuracy_run(dev, p, cfg, "dense_matvec")
+    emit("fp64_tail", **row, max_kkt=TAIL_KKT,
+         jax_cpu_status=TAIL_JAX_STATUS,
+         refine_wall_s=refine_row["wall_s"], refine_j=refine_row["j"])
+    stages = r.escalation["stages"] if r.escalation else []
+    if row["route"] != "fp64_tail" or [s["dtype"] for s in stages] != [
+            "float32", "float64"] or stages[0]["status"] != "Solved":
+        raise AssertionError(f"fp64_tail: {r.status_string} by "
+                             f"{row['route']}, stages {row['stages']}")
+    if r.status != getattr(Status, TAIL_JAX_STATUS):
+        raise AssertionError(f"fp64_tail: {r.status_string}, the JAX "
+                             f"package {TAIL_JAX_STATUS}")
+    if r.status == Status.SOLVED and not row["host_certified"]:
+        raise AssertionError(f"fp64_tail: Solved, host residuals {row}")
+
+
+def presolve_phase(oracle, dense_rows):
+    """The vendored corpus through the CLI with --presolve python, then
+    cpp (the C++ core built with g++ first, timed): every row's status the
+    linprog verdict, every Solved row's objective within 10*tol of the
+    no-presolve dense sweep's; the reductions of both engines
+    (bench/presolve_stats.py) printed per row and equal."""
+    import os
+
+    from tpdlp_torch.bench import presolve_stats
+    from tpdlp_torch.bench.suite import INSTANCES_DIR
+    from tpdlp_torch.presolve import cpp
+
+    built_before = cpp.library_path().exists()
+    t0 = time.perf_counter()
+    cpp.build()
+    build_s = time.perf_counter() - t0
+    stats = presolve_stats.run_stats(("python", "cpp"))
+    by = {}
+    for row in stats:
+        by.setdefault(row["instance"], {})[row["backend"]] = row
+    keys = ("status", "passes", "rows_removed", "cols_removed",
+            "rows_removed_pct", "cols_removed_pct", "nnz_removed_pct")
+    emit("presolve_stats", gxx_build_s=build_s, built_before=built_before,
+         rows={name: {"python": {k: v["python"][k] for k in keys},
+                      "cpp_equal": all(v["python"][k] == v["cpp"][k]
+                                       for k in keys),
+                      "ms": [v["python"]["time_ms"], v["cpp"]["time_ms"]]}
+               for name, v in by.items()})
+    for name, v in by.items():
+        if any(v["python"][k] != v["cpp"][k] for k in keys):
+            raise AssertionError(f"presolve_stats {name}: {v}")
+    files = sorted(f for f in os.listdir(INSTANCES_DIR) if f.endswith(".mps"))
+    for backend in ("python", "cpp"):
+        got, _ = _cli_sweep(["--matrix_format", "dense", "--presolve",
+                             backend], oracle, files, "presolve")
+        for f, row in got.items():
+            if row["Status"] != "Solved":
+                continue
+            a, b = float(row["Objective"]), float(dense_rows[f]["Objective"])
+            if abs(a - b) > 10 * TOL * (1 + abs(b)):
+                raise AssertionError(f"presolve {backend}: {f} objective "
+                                     f"{a}, without presolve {b}")
 
 
 def _kernel_entry(name, source, replaces, launches, rows, head):
@@ -1409,7 +1776,34 @@ def main() -> int:
     emit("build", seconds=seconds, library=str(lib),
          serial_seconds=serial_build_seconds(K), ptxas=ptxas_report(K))
 
+    from concurrent.futures import ProcessPoolExecutor
+
     from tpdlp_torch import generate_banded_lp
+    from tpdlp_torch.bench.suite import build_suite
+
+    (p_s,) = build_suite(("large",), names=("mittelmann-s",))
+    p_b8 = generate_banded_lp(**BAND_8192)
+    p_b8.name = "banded-8192"
+    # HiGHS optima of the high-accuracy phases, computed meanwhile (from
+    # the end of the kernel timings on, whose launches a busy host would
+    # delay).
+    highs = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs)
+    finally:
+        highs.shutdown(wait=True, cancel_futures=True)
+
+
+def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
+    from tpdlp_torch import generate_banded_lp, generate_feasible_lp
+    from tpdlp_torch.bench.suite import build_suite
+
+    def phase(tag, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        emit("phase_seconds", name=tag, seconds=time.perf_counter() - t0)
+        return out
 
     n, mi, me, bw = BAND_100K
     t0 = time.perf_counter()
@@ -1417,10 +1811,6 @@ def main() -> int:
                                 seed=0)
     emit("band_instance", instance=p_band.name, nnz=int(p_band.K.nnz),
          seconds=time.perf_counter() - t0)
-
-    from tpdlp_torch import generate_feasible_lp
-    from tpdlp_torch.bench.suite import build_suite
-
     (p_l,) = build_suite(("xl",), names=("mittelmann-l",))
     t0 = time.perf_counter()
     p_1m = generate_feasible_lp(**SPARSE_1M)
@@ -1428,54 +1818,94 @@ def main() -> int:
     emit("sparse_instance", instance=p_1m.name, shape=list(p_1m.shape),
          nnz=int(p_1m.K.nnz), seconds=time.perf_counter() - t0)
 
-    dense_rows = kernels_phase(dev, rates)
-    band_rows = band_kernels_phase(dev, rates, p_band)
-    csr_rows = csr_kernels_phase(dev, rates, p_l, p_1m)
-    dense_runs, dense_launches = solve_phase(dev)
-    band_row, band_launches = band_phase(dev, p_band)
-    dense_certify, band_certify = certify_phase(dev, p_band, band_row)
-    profile_phase(dev, p_band)
-    cross_phase(dev)
-    band_cross_phase(dev)
-    dense_l = next(r for r in dense_runs
+    out = {}
+    out["dense_rows"] = phase("kernels", kernels_phase, dev, rates)
+    out["band_rows"] = phase("band_kernels", band_kernels_phase, dev, rates,
+                             p_band)
+    out["csr_rows"] = phase("csr_kernels", csr_kernels_phase, dev, rates,
+                            p_l, p_1m)
+    oracles = {"refine": highs.submit(highs_objective, p_s),
+               "refine_band": highs.submit(highs_objective, p_b8)}
+    out["dense_runs"], out["dense_launches"] = phase("solve", solve_phase,
+                                                     dev)
+    band_row, out["band_launches"], band_run = phase("band", band_phase,
+                                                     dev, p_band)
+    out["dense_certify"], out["band_certify"] = phase(
+        "certify", certify_phase, dev, p_band, band_row)
+    phase("profile", profile_phase, dev, p_band)
+    phase("cross", cross_phase, dev)
+    phase("band_cross", band_cross_phase, dev)
+    dense_l = next(r for r in out["dense_runs"]
                    if r["instance"] == p_l.name and r["seed"] == 0)
-    sparse_row, csr_launches_1m = sparse_phase(dev, p_l, dense_l, p_1m,
-                                               p_band, band_row)
-    checkpoint_phase(dev)
-    cli_phase()
-
-    dense_head = next(r for r in dense_rows
-                      if tuple(r["shape"]) == HEADLINE_SHAPE
-                      and r["dtype"] == "float32")
-    band_head = next(r for r in band_rows if r["case"] == "100k K"
-                     and r["dtype"] == "float32")
-    csr_head = next(r for r in csr_rows if r["case"] == "mittelmann-l K"
-                    and r["dtype"] == "float32")
+    out["sparse_row"], out["csr_launches_1m"] = phase(
+        "sparse", sparse_phase, dev, p_l, dense_l, p_1m)
+    del p_1m
+    out["auto_label"] = phase("autotune_stable", autotune_stable_phase,
+                              dev, p_band, band_run)
+    del band_run
+    phase("checkpoint", checkpoint_phase, dev)
+    oracle, dense_cli = phase("cli", cli_phase)
+    phase("presolve", presolve_phase, oracle, dense_cli)
+    out["refine_row"] = phase("refine", refine_phase, dev, "refine", p_s,
+                              oracles["refine"], "dense_matvec", REFINE_KKT)
+    out["refine_band_row"] = phase(
+        "refine_band", refine_phase, dev, "refine_band", p_b8,
+        oracles["refine_band"], "band_matvec", REFINE_BAND_KKT,
+        start=REFINE_BAND_START, matrix_format="band")
+    phase("fp64_tail", fp64_tail_phase, dev, p_s, out["refine_row"])
     emit("total", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [
-        {**_kernel_entry("dense_matvec", "tpdlp_torch/csrc/dense_matvec.cu",
-                         "tpdlp/ops/pallas_dense.py:77", dense_launches,
-                         dense_rows, dense_head),
-         "launches_certificates": dense_certify,
-         "shape": list(HEADLINE_SHAPE)},
-        {**_kernel_entry("band_matvec", "tpdlp_torch/csrc/band_matvec.cu",
-                         "tpdlp/ops/band.py:160", band_launches, band_rows,
-                         band_head),
-         "launches_certificates": band_certify,
-         "csr_ms": band_head["csr_ms"], "shape": band_head["slabs"]},
-        {**_kernel_entry("csr_matvec", "tpdlp_torch/csrc/csr_matvec.cu",
-                         "tpdlp/ops/sparse.py:65", sparse_row["launches"],
-                         csr_rows, csr_head),
-         "replaces_note": "SparseOp.mv, an XLA BCOO product: no Pallas "
-                          "kernel",
-         "launches_sparse_1m": csr_launches_1m,
-         "shape": csr_head["shape"], "nnz": csr_head["nnz"]},
-    ]}), flush=True)
+
+    print(json.dumps(_summary(out)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _summary(out):
+    """The kernel summary line: each kernel against its twin, its launches
+    on the main path, and its bound; K1 also at refinement's K_aug."""
+    dense_rows = out["dense_rows"]
+    dense_head = next(r for r in dense_rows
+                      if tuple(r["shape"]) == HEADLINE_SHAPE
+                      and r["dtype"] == "float32")
+    kaug = next(r for r in dense_rows if tuple(r["shape"]) == KAUG_SHAPE
+                and r["dtype"] == "float32")
+    band_head = next(r for r in out["band_rows"] if r["case"] == "100k K"
+                     and r["dtype"] == "float32")
+    csr_head = next(r for r in out["csr_rows"]
+                    if r["case"] == "mittelmann-l K"
+                    and r["dtype"] == "float32")
+    refine, refine_band = out["refine_row"], out["refine_band_row"]
+    return {"kernels": [
+        {**_kernel_entry("dense_matvec", "tpdlp_torch/csrc/dense_matvec.cu",
+                         "tpdlp/ops/pallas_dense.py:77",
+                         out["dense_launches"], dense_rows, dense_head),
+         "launches_certificates": out["dense_certify"],
+         "launches_refine": refine["launches"]["dense_matvec"],
+         "shape": list(HEADLINE_SHAPE),
+         "k_aug": {"shape": list(KAUG_SHAPE), "ms": kaug["kernel_ms"],
+                   "plain_ms": kaug["plain_ms"],
+                   "bound_ms": kaug["bound_ms"],
+                   "library_ms": kaug["library_ms"],
+                   "loop_ms": kaug["kernel_loop_ms"],
+                   "library_loop_ms": kaug["library_loop_ms"]}},
+        {**_kernel_entry("band_matvec", "tpdlp_torch/csrc/band_matvec.cu",
+                         "tpdlp/ops/band.py:160", out["band_launches"],
+                         out["band_rows"], band_head),
+         "launches_certificates": out["band_certify"],
+         "launches_refine_band": refine_band["launches"]["band_matvec"],
+         "csr_ms": band_head["csr_ms"], "shape": band_head["slabs"]},
+        {**_kernel_entry("csr_matvec", "tpdlp_torch/csrc/csr_matvec.cu",
+                         "tpdlp/ops/sparse.py:65",
+                         out["sparse_row"]["launches"], out["csr_rows"],
+                         csr_head),
+         "replaces_note": "SparseOp.mv, an XLA BCOO product: no Pallas "
+                          "kernel",
+         "launches_sparse_1m": out["csr_launches_1m"],
+         "shape": csr_head["shape"], "nnz": csr_head["nnz"]},
+    ]}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 subprocess on the CPU, beside the JAX CLI on the same folder (the JAX
 package's tests/test_cli.py flow): the CSV schema without pandas, the
 JAX CLI's status, k and j per file under fixed steps, the "Failed to load"
-row, and every flag of an unported option refused before the sweep with
-its ROADMAP.md item."""
+row, --presolve and the escalation of a tolerance below escalation_tol
+against the JAX CLI, and every flag of an unported option refused before
+the sweep with its ROADMAP.md item."""
 
 import csv
 import os
@@ -102,24 +103,83 @@ def test_cli_single_file_and_support_sparse(mps_folder, tmp_path):
 ])
 def test_unported_flags_exit_naming_their_item(mps_folder, tmp_path, flags,
                                                item):
+    """A flag of a ROADMAP.md item not ported yet exits before the sweep
+    naming its item.  --presolve (item 18, ported) runs: the JAX CLI's
+    status, k, n and j per file under fixed steps, objectives to 1e-5."""
+    out = tmp_path / "out"
     r = _run("tpdlp_torch.cli.main",
              ["--instance_path", str(mps_folder), *flags,
-              "--output_path", str(tmp_path / "out")], str(tmp_path))
-    assert r.returncode != 0
-    assert f"item {item})" in r.stderr
-    assert not (tmp_path / "out").exists()
+              *(FIXED_FLAGS if item == 18 else []),
+              "--output_path", str(out)], str(tmp_path))
+    if item != 18:
+        assert r.returncode != 0
+        assert f"item {item})" in r.stderr
+        assert not out.exists()
+        return
+    assert r.returncode == 0, r.stderr[-2000:]
+    out_j = tmp_path / "jax"
+    rj = _run("tpdlp.cli.main",
+              ["--instance_path", str(mps_folder), *flags, *FIXED_FLAGS,
+               "--output_path", str(out_j)], str(tmp_path))
+    assert rj.returncode == 0, rj.stderr[-2000:]
+    _, rows_t = _read(out)
+    _, rows_j = _read(out_j)
+    for name in ("inst0.mps", "inst1.mps"):
+        a, b = rows_t[name], rows_j[name]
+        assert a["Status"] == b["Status"] == "Solved"
+        for key in ("Iterations (k)", "Restarts (n)", "KKT Passes (j)"):
+            assert a[key] == b[key], (name, key)
+        assert float(a["Objective"]) == pytest.approx(
+            float(b["Objective"]), abs=1e-5)
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])
 def test_escalation_tolerance_exits_naming_item_15(mps_folder, tmp_path,
-                                                   device):
-    """Below escalation_tol in fp32 (the CUDA default) the JAX package
-    escalates; the port's CLI refuses before it touches the device."""
+                                                   device, monkeypatch):
+    """Below escalation_tol with no --dtype the CLI escalates on CUDA
+    (fp32) as the JAX CLI does on an accelerator: iterative refinement by
+    default.  Both CLIs run in this process with their default dtype
+    patched to fp32 (on the CPU): every row Solved, objectives within
+    1e-8 relative.  As a subprocess with --device cuda|auto the CLI no
+    longer refuses the tolerance: without a CUDA device it exits naming
+    the device, with one it solves."""
+    import importlib
+
+    import jax.numpy as jnp
+    import torch
+
+    from tpdlp.cli import main as jax_cli
+    from tpdlp_torch.cli import main as port_cli
+
+    flags = ["--instance_path", str(mps_folder), "--tolerance", "1e-8",
+             "--precondition", "--adaptive_stepsize",
+             "--primal_weight_update"]
+    monkeypatch.setattr(importlib.import_module("tpdlp.solver.solve"),
+                        "default_dtype", lambda: jnp.float32)
+    monkeypatch.setattr(importlib.import_module("tpdlp_torch.solver.solve"),
+                        "default_dtype", lambda device: torch.float32)
+    assert port_cli.main(["--device", "cpu", *flags, "--output_path",
+                          str(tmp_path / "port")]) == 0
+    assert jax_cli.main(["--device", "cpu", *flags, "--output_path",
+                         str(tmp_path / "jax")]) == 0
+    _, rows_t = _read(tmp_path / "port")
+    _, rows_j = _read(tmp_path / "jax")
+    for name in ("inst0.mps", "inst1.mps"):
+        a, b = rows_t[name], rows_j[name]
+        assert a["Status"] == b["Status"] == "Solved", (a, b)
+        assert float(a["Objective"]) == pytest.approx(
+            float(b["Objective"]), rel=1e-8, abs=1e-6)
     r = _run("tpdlp_torch.cli.main",
-             ["--instance_path", str(mps_folder), "--tolerance", "1e-8",
-              "--output_path", str(tmp_path / "out")], str(tmp_path),
-             device=device)
-    assert r.returncode != 0 and "item 15)" in r.stderr
+             ["--instance_path", str(mps_folder / "inst0.mps"),
+              "--tolerance", "1e-8", "--output_path", str(tmp_path / "sub")],
+             str(tmp_path), device=device)
+    assert "item 15" not in r.stderr
+    if torch.cuda.is_available():
+        assert r.returncode == 0, r.stderr[-2000:]
+        _, rows = _read(tmp_path / "sub")
+        assert rows["inst0.mps"]["Status"] == "Solved"
+    else:
+        assert r.returncode != 0 and "--device" in r.stderr
 
 
 def test_no_cuda_exits_without_cpu_fallback(mps_folder, tmp_path):

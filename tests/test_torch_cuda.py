@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch twins.
+"""The port's CUDA kernels on the card, against their plain PyTorch twins,
+and the paths that need the card to mean anything: the autotune timed on
+the device, the escalated 1e-8 solves.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch for CUDA:
@@ -428,3 +430,81 @@ def test_sparse_and_auto_solves_on_card(card):
         assert r.status == tpdlp_torch.Status.SOLVED
         assert abs(r.objective - runs[0].objective) <= 5e-4 * (
             1 + abs(r.objective))
+
+
+def test_auto_picks_one_layout_on_banded_100k(card):
+    """The autotune times its candidates on the card (captured chains,
+    CUDA events): on the banded 100k instance three calls choose the same
+    layout."""
+    from tpdlp_torch.ops.autotune import choose_operator
+
+    p = tpdlp_torch.generate_banded_lp(n=100_000, m_ineq=75_000,
+                                       m_eq=25_000, bandwidth=105, seed=0)
+    labels = []
+    for _ in range(3):
+        timings = {}
+        op, label = choose_operator(p.K, torch.float32, device=card,
+                                    timings=timings)
+        assert {"band", "sparse"} <= set(timings)
+        assert label == min(timings, key=timings.get)
+        labels.append(label)
+        del op
+    assert len(set(labels)) == 1, labels
+
+
+def test_captured_autotune_chain_launches_equal_the_formula(card):
+    """A timing by captured chains counts each replay as the graph's
+    launches, and the capture itself as none: autotune_launches per timed
+    operator with a kernel; the graphs' pool is freed afterwards."""
+    from tpdlp_torch.ops import autotune as A
+    from tpdlp_torch.ops.sparse import SparseOp
+
+    rng = np.random.default_rng(0)
+    M = rng.standard_normal((300, 500)) * (rng.random((300, 500)) < 0.05)
+    for op, kernel in ((ExactDenseOp.build(torch.as_tensor(
+            M, dtype=torch.float32, device=card)), "dense_matvec"),
+            (SparseOp.from_scipy(M, torch.float32, device=card),
+             "csr_matvec")):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        seconds = A._time_op(op, kkt_passes=10)
+        assert seconds > 0
+        assert _kernels.launches[kernel] == A.autotune_launches(1, 10)
+        assert sum(_kernels.launches.values()) == _kernels.launches[kernel]
+
+
+def test_refine_1e8_on_card_is_certified(card):
+    """dtype=None at tol 1e-8 on CUDA runs iterative refinement (fp32
+    device solves) and returns a point whose fp64 host residuals meet the
+    criteria."""
+    from tpdlp_torch.solver.refine import host_residuals
+
+    p = tpdlp_torch.generate_feasible_lp(n=60, m_ineq=35, m_eq=12, seed=11)
+    tol = 1e-8
+    r = tpdlp_torch.solve(p, tpdlp_torch.SolverConfig(
+        tol=tol, scaling="ruiz", adaptive=True, primal_weight_update=True,
+        max_kkt=400_000))
+    assert r.status == tpdlp_torch.Status.SOLVED, r.status_string
+    assert r.escalation["route"] == "refine"
+    assert all(s["dtype"] == "float32" for s in r.escalation["stages"])
+    assert sum(s["launches"]["dense_matvec"]
+               for s in r.escalation["stages"]) > 0
+    K = p.K.tocsr().astype(np.float64)
+    res = host_residuals(K, p.c, p.q, p.l, p.u, p.m_ineq,
+                         np.asarray(r.x, float), np.asarray(r.y, float))
+    assert res.primal_res <= tol * (1 + np.linalg.norm(p.q))
+    assert res.dual_res <= tol * (1 + np.linalg.norm(p.c))
+    assert res.gap <= tol * (1 + abs(res.prim_obj) + abs(res.adjusted_dual))
+
+
+def test_fp64_tail_on_card_runs_both_dtypes(card):
+    """escalation_mode="fp64_tail" on CUDA: an fp32 stage, then an fp64
+    stage on K1's fp64 variant."""
+    p = tpdlp_torch.generate_feasible_lp(n=60, m_ineq=35, m_eq=12, seed=11)
+    r = tpdlp_torch.solve(p, tpdlp_torch.SolverConfig(
+        tol=1e-8, scaling="ruiz", adaptive=True, primal_weight_update=True,
+        max_kkt=400_000, escalation_mode="fp64_tail"))
+    stages = r.escalation["stages"]
+    assert [s["dtype"] for s in stages] == ["float32", "float64"]
+    assert all(s["launches"]["dense_matvec"] > 0 for s in stages)
+    assert r.status == tpdlp_torch.Status.SOLVED, r.status_string

@@ -2,7 +2,7 @@
 suite's small classes, deg2-class and maros-class, in fp64 on the CPU with
 the JAX power-iteration draw injected, and the solve() paths around the
 loop (warm start, time limit, KKT budget, the per-iteration slice's
-options, unported options).
+options, presolve, the escalation reroute, unported options).
 
 Exact parity (same k, n, j, status; x, y, objective to 1e-9) is asserted
 for fixed steps.  Under the adaptive (Malitsky-Pock) rule the trajectory
@@ -185,8 +185,17 @@ def test_result_surface_equals_jax(jax_b0):
     (dict(mesh=object(), matrix_format="auto"), 21),
     (dict(mesh=object()), 21),
 ])
-def test_unported_options_raise(kw, item):
+def test_unported_options_raise(jax_b0, kw, item):
+    """Options of a ROADMAP.md item not ported yet raise naming it; those
+    of a ported item (18, presolve) run and match the JAX package: the
+    same status, k, n and j and the objective to 1e-9 under fixed steps
+    in fp64."""
     p = _SUITE["afiro-class"]
+    if item == 18:
+        rj, rt = _both(p, tol=1e-6, solve_kw=kw, **FIXED)
+        assert rj.status == tpdlp.Status.SOLVED
+        _exact(rj, rt)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         tpdlp_torch.solve(p, device="cpu", **kw)
 
@@ -227,16 +236,26 @@ def test_band_format_rejects_unstructured():
         tpdlp_torch.solve(p, device="cpu", matrix_format="band")
 
 
-def test_escalation_reroute_raises_on_cuda_only():
-    """dtype=None below escalation_tol reroutes in the JAX package on an
-    accelerator; the port raises there, and on the CPU (fp64) solves."""
+def test_escalation_reroute_raises_on_cuda_only(monkeypatch):
+    """dtype=None below escalation_tol: on the CPU (fp64) the port solves
+    directly, as the JAX package does there; with the default dtype fp32,
+    as on CUDA, both packages reroute into iterative refinement and reach
+    the same status, with objectives within 1e-8 relative."""
+    import importlib
+
     p = _SUITE["afiro-class"]
     cfg = tpdlp_torch.SolverConfig(tol=1e-8, **FIXED)
     r = tpdlp_torch.solve(p, cfg, device="cpu")
     assert r.status == tpdlp_torch.Status.SOLVED
-    assert r.x.dtype == np.float64
-    if torch.cuda.is_available():
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tpdlp_torch.solve(p, cfg)
+    assert r.x.dtype == np.float64 and r.escalation is None
+    monkeypatch.setattr(importlib.import_module("tpdlp.solver.solve"),
+                        "default_dtype", lambda: jnp.float32)
+    monkeypatch.setattr(importlib.import_module("tpdlp_torch.solver.solve"),
+                        "default_dtype", lambda device: torch.float32)
+    rj = tpdlp.solve(p, tpdlp.SolverConfig(tol=1e-8, **FIXED))
+    rt = tpdlp_torch.solve(p, cfg, device="cpu")
+    assert rj.status == rt.status == tpdlp_torch.Status.SOLVED
+    assert rt.escalation["route"] == "refine"
+    assert abs(rt.objective - rj.objective) <= 1e-8 * (1 + abs(rj.objective))
     with pytest.raises(ValueError, match="matrix_format"):
         tpdlp_torch.solve(p, device="cpu", matrix_format="coo")

@@ -12,11 +12,12 @@ with the `csv` module.
 `--device` takes cpu, cuda or auto; auto means CUDA and exits with an
 error where there is none (no CPU fallback).  `--support_sparse` runs the
 layout autotune (matrix_format="auto"), and `--matrix_format` forces a
-layout.  Flags of options the port does not run yet exit non-zero before
-the sweep and name their ROADMAP.md item: --fishnet (19), --batch_solve
-(20), --mesh (21), --presolve other than off (18), and a tolerance below
-`escalation_tol` in fp32 on CUDA with no --dtype, which the JAX package
-would escalate (15).
+layout.  `--presolve python|cpp` reduces each LP first and maps the
+solution back.  A tolerance below `escalation_tol` with no --dtype on
+CUDA (fp32) escalates as in the JAX CLI: iterative refinement by default.
+Flags of options the port does not run yet exit non-zero before the sweep
+and name their ROADMAP.md item: --fishnet (19), --batch_solve (20) and
+--mesh (21).
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def parse_args(argv=None):
                    help="RxC mesh for a sharded solve (not ported yet)")
     p.add_argument("--presolve", type=str, default="off",
                    choices=["off", "python", "cpp"],
-                   help="presolve/postsolve round trip (not ported yet)")
+                   help="PaPILO-equivalent presolve/postsolve round trip")
     p.add_argument("--compat_fr_zero", action="store_true",
                    help="Reproduce the reference's FR-bound quirk "
                         "(lo=0 instead of -inf)")
@@ -86,21 +87,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _unported(args, cfg):
+def _unported(args):
     """The first flag naming an option the port does not run yet, as a
     message with its ROADMAP.md item; None when there is none."""
     flags = [
         (args.fishnet, "--fishnet", 19),
         (args.batch_solve, "--batch_solve", 20),
         (args.mesh, "--mesh", 21),
-        (args.presolve != "off", f"--presolve {args.presolve}", 18),
-        # The JAX package escalates an fp32 solve below escalation_tol;
-        # the port's default dtype is fp32 on CUDA.
-        (args.device != "cpu" and args.dtype is None
-         and cfg.precision_escalation and cfg.tol < cfg.escalation_tol,
-         f"--tolerance {args.tolerance:g} (below escalation_tol "
-         f"{cfg.escalation_tol:g} in fp32, which needs precision "
-         "escalation)", 15),
     ]
     for on, what, item in flags:
         if on:
@@ -156,7 +149,7 @@ def main(argv=None):
         abs_gap_termination=args.abs_gap_termination,
         verbose=args.verbose,
     )
-    msg = _unported(args, cfg)
+    msg = _unported(args)
     if msg is not None:
         raise SystemExit(msg)
 
@@ -212,7 +205,8 @@ def main(argv=None):
             continue
         try:
             result = solve(problem, cfg, dtype=dtype, device=dev,
-                           seed=args.seed, matrix_format=matrix_format)
+                           seed=args.seed, matrix_format=matrix_format,
+                           presolve=args.presolve)
             print(f"Solver uses {result.solve_time:.4f} seconds.")
             print(f"Status: {result.status_string}")
             results.append(result.csv_row(fname))

@@ -89,7 +89,8 @@ class SolverConfig:
     normalized_tol_conv: float = 1e-4
     normalized_tol_nonzero: float = 1e-3
 
-    # Precision escalation below the fp32 floor (not ported yet).
+    # Precision escalation below the fp32 floor (solver/refine.py, or the
+    # fp64 tail of solver/solve.py::_solve_escalated).
     precision_escalation: bool = True
     escalation_tol: float = 1e-6
     escalation_scheme: str = "auto"

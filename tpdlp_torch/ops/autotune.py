@@ -67,9 +67,124 @@ def _dense_from_coo(coo: sp.coo_matrix, dtype, device):
     return ExactDenseOp.build(dense_from_coo(coo, dtype, device))
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+#: Timed replays of each captured chain on a CUDA device (after one
+#: untimed replay); the median is kept.
+GRAPH_REPLAYS = 5
+
+
+def _chain_inputs(op):
+    """The seeded x and y every timing of `op` starts from."""
+    m, n = op.shape
+    g = torch.Generator(device="cpu")
+    g.manual_seed(0)
+    x = torch.randn((n,), generator=g, dtype=torch.float64).to(
+        dtype=op.dtype, device=op.device)
+    y = torch.randn((m,), generator=g, dtype=torch.float64).to(
+        dtype=op.dtype, device=op.device)
+    return x, y
+
+
+def _chain(op, x, y, passes, dy):
+    """`passes` chained K x / K'y pairs: each pass feeds the next."""
+    xv, yv = x, y + dy
+    for _ in range(passes):
+        kx = op.mv(xv)
+        kty = op.rmv(yv)
+        xv = xv + kty / (1.0 + torch.max(torch.abs(kty)))
+        yv = yv + kx / (1.0 + torch.max(torch.abs(kx)))
+    return xv, yv
+
+
+def _time_op_host(op, lo, hi) -> float:
+    """The CPU rule: host seconds around each chain, which ends in nothing
+    but its own work there."""
+    x, y = _chain_inputs(op)
+
+    def timed(passes, dy):
+        _chain(op, x, y, passes, dy)  # warm-up
+        t0 = time.perf_counter()
+        _chain(op, x, y, passes, dy + 1.0)  # perturbed: never the warm-up's
+        return time.perf_counter() - t0
+
+    t_lo = timed(lo, 0.0)
+    t_hi = timed(hi, 2.0)
+    return max(t_hi - t_lo, 1e-9) / (hi - lo)
+
+
+def _time_op_graphs(op, lo, hi) -> float:
+    """The CUDA rule: each chain captured once as a CUDA graph and its
+    replays timed by CUDA events, so Python's launches never enter the
+    timed window; seconds per pair are the slope of the two medians.
+
+    The eager warm-up chains (with the host rule's inputs) run every
+    kernel's one-time set-up (the shared-memory opt-in and the SM-count
+    query of csrc/pipeline.cuh, the lazily built K' of ExactDenseOp)
+    before capture.  The kernel wrappers count what a capture records; the
+    capture itself launches nothing, so that count is taken back and added
+    again at every replay (`_kernels.launches` stays the count of kernels
+    the card ran).  The graphs and their memory pool are freed before
+    this returns."""
+    from tpdlp_torch.ops import _kernels
+
+    dev = op.device
+    x, y = _chain_inputs(op)
+    before = sum(_kernels.launches.values())
+    _chain(op, x, y, lo, 0.0)
+    _chain(op, x, y, hi, 2.0)
+    torch.cuda.synchronize(dev)
+    warm = sum(_kernels.launches.values()) - before
+    if isinstance(op, (ExactDenseOp, BandOp, SparseOp)) and (
+            warm != 2 * (lo + hi)):
+        raise RuntimeError(f"autotune warm-up launched {warm} kernels, "
+                           f"expected {2 * (lo + hi)}")
+
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for passes, dy in ((lo, 1.0), (hi, 3.0)):  # the host rule's inputs
+        counted = dict(_kernels.launches)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(graph, pool=pool):
+            _chain(op, x, y, passes, dy)
+        recorded = {k: _kernels.launches[k] - counted[k] for k in counted}
+        _kernels.launches.update(counted)
+        graphs.append((graph, recorded))
+
+    def replay(graph, recorded):
+        graph.replay()
+        for k, v in recorded.items():
+            _kernels.launches[k] += v
+
+    medians = []
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        for graph, recorded in graphs:
+            replay(graph, recorded)  # untimed
+            times = []
+            for _ in range(GRAPH_REPLAYS):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record(stream)
+                replay(graph, recorded)
+                t1.record(stream)
+                t1.synchronize()
+                times.append(t0.elapsed_time(t1) * 1e-3)
+            medians.append(sorted(times)[len(times) // 2])
+    torch.cuda.synchronize(dev)
+    for graph, _ in graphs:
+        graph.reset()
+    del graphs, graph, pool
+    torch.cuda.empty_cache()
+    t_lo, t_hi = medians
+    return max(t_hi - t_lo, 1e-12) / (hi - lo)
+
+
+def autotune_launches(op_count: int = 1, kkt_passes: int = 10) -> int:
+    """Kernel launches of `op_count` timings on a CUDA device by an
+    operator with a kernel: the eager warm-up chains and, per captured
+    chain, one untimed and GRAPH_REPLAYS timed replays, two launches a
+    pair."""
+    lo, hi = kkt_passes, 6 * kkt_passes
+    return op_count * 2 * (lo + hi) * (2 + GRAPH_REPLAYS)
 
 
 def _time_op(op, kkt_passes: int = 10) -> float:
@@ -79,36 +194,13 @@ def _time_op(op, kkt_passes: int = 10) -> float:
     a perturbed y, never from a repeat of the warm-up's inputs), timed at
     two chain lengths: the slope cancels the fixed cost of a chain, which
     would otherwise drown the per-pass difference between candidates for
-    small operators.  Each chain ends in a device synchronisation."""
-    m, n = op.shape
-    g = torch.Generator(device="cpu")
-    g.manual_seed(0)
-    x = torch.randn((n,), generator=g, dtype=torch.float64).to(
-        dtype=op.dtype, device=op.device)
-    y = torch.randn((m,), generator=g, dtype=torch.float64).to(
-        dtype=op.dtype, device=op.device)
-
-    def chain(passes, dy):
-        xv, yv = x, y + dy
-        for _ in range(passes):
-            kx = op.mv(xv)
-            kty = op.rmv(yv)
-            xv = xv + kty / (1.0 + torch.max(torch.abs(kty)))
-            yv = yv + kx / (1.0 + torch.max(torch.abs(kx)))
-        return xv, yv
-
-    def timed(passes, dy):
-        chain(passes, dy)  # warm-up
-        _sync(op.device)
-        t0 = time.perf_counter()
-        chain(passes, dy + 1.0)  # perturbed: never the warm-up's inputs
-        _sync(op.device)
-        return time.perf_counter() - t0
-
+    small operators (the JAX rule, tpdlp/ops/autotune.py).  On a CUDA
+    device the chains are timed on the card (`_time_op_graphs`); on the
+    CPU by the host's clock."""
     lo, hi = kkt_passes, 6 * kkt_passes
-    t_lo = timed(lo, 0.0)
-    t_hi = timed(hi, 2.0)
-    return max(t_hi - t_lo, 1e-9) / (hi - lo)
+    if op.device.type == "cuda":
+        return _time_op_graphs(op, lo, hi)
+    return _time_op_host(op, lo, hi)
 
 
 def choose_operator(K, dtype=torch.float32, kkt_passes: int = 10,

@@ -12,11 +12,19 @@ continues from the saved state.  Options the port does not run yet raise
 `NotImplementedError` naming the ROADMAP.md item (queue 1) that brings
 them.
 
+With dtype=None on CUDA (fp32) and `tol` below `escalation_tol`, the solve
+escalates as the JAX package's does: `escalation_mode` "auto" and "refine"
+run iterative refinement (solver/refine.py), "fp64_tail" an fp32 stage to
+`escalation_tol` and then a warm-started fp64 stage on the card
+(`_solve_escalated`).  `presolve="python"|"cpp"` solves the reduced LP of
+tpdlp_torch/presolve and maps the solution back.
+
 Left out on purpose, as ROADMAP.md's precision rule says: the JAX
 package's guards for the TPU's rounding matrix unit (`_mxu_noisy`, the
 warning and the escalation reroute for sparse layouts below 1e-4) and for
-its emulated fp64 (`_f64_guard`).  On the H100 an fp32 product is exact
-in every layout and fp64 is native.
+its emulated fp64 (`_f64_guard`, `_F64_DENSE_ELEM_LIMIT` and the fp64
+tail's sharded reroute).  On the H100 an fp32 product is exact in every
+layout and fp64 is native.
 """
 
 from __future__ import annotations
@@ -67,6 +75,9 @@ class SolveResult:
     history: Optional[list] = None
     obj_offset: float = 0.0
     objective_sense: str = "MIN"
+    #: An escalated solve's route and stages ("refine" or "fp64_tail";
+    #: see `run_stage`); None for a direct solve.
+    escalation: Optional[dict] = None
 
     @property
     def status_string(self) -> str:
@@ -242,8 +253,127 @@ def _check_ported(mesh, matrix_format, presolve):
         raise _unported("solve(mesh=...)", 21)
     if matrix_format not in MATRIX_FORMATS:
         raise ValueError(f"unknown matrix_format: {matrix_format!r}")
-    if presolve != "off":
-        raise _unported(f"presolve={presolve!r}", 18)
+    if presolve not in ("off", "python", "cpp"):
+        raise ValueError(f"unknown presolve backend: {presolve!r}")
+
+
+def run_stage(stages: list, what: str, fn, *args, **kwargs):
+    """Run one inner solve of an escalated solve, `fn(*args, **kwargs)`,
+    and append its record to `stages`: what it was, dtype, status, k, n,
+    j, its wall seconds, the kernel launches (`ops/_kernels.launches`) and
+    the loop's issued iterations and restart checks (`loop.launched`)
+    during it.  Returns its result."""
+    from tpdlp_torch.ops import _kernels
+    from tpdlp_torch.solver import loop
+
+    k0, i0 = dict(_kernels.launches), dict(loop.launched)
+    t0 = time.perf_counter()
+    r = fn(*args, **kwargs)
+    stages.append({
+        "stage": what,
+        "dtype": str(kwargs.get("dtype")).replace("torch.", ""),
+        "status": r.status_string,
+        "k": r.iterations, "n": r.restarts, "j": r.kkt_passes,
+        "wall_s": time.perf_counter() - t0,
+        "launches": {k: v - k0[k] for k, v in _kernels.launches.items()},
+        "issued": {k: v - i0[k] for k, v in loop.launched.items()},
+    })
+    return r
+
+
+def _solve_escalated(problem, cfg: SolverConfig, **kw):
+    """Two-stage precision escalation (counterpart of the JAX
+    `_solve_escalated`): an fp32 stage to `cfg.escalation_tol`, then an
+    fp64 stage warm-started from its solution to `cfg.tol`, natively on
+    the card.  Work and time budgets span both stages; counters and
+    histories are summed, and a budget spent by the fp32 stage reports
+    KKT_LIMIT (only `escalation_tol` was certified).
+
+    escalation_scheme="auto" (with the vanilla scheme configured) runs the
+    fp32 stage with adaptive steps and the fp64 stage as Halpern with fixed
+    steps."""
+    auto = cfg.escalation_scheme == "auto" and cfg.step_scheme == "vanilla"
+    base = cfg
+    if auto and not cfg.adaptive:
+        base = cfg.replace(adaptive=True)
+    coarse = base.replace(tol=max(cfg.escalation_tol, cfg.tol))
+    stages: list = []
+    s1 = run_stage(stages, "fp32", solve, problem, coarse,
+                   dtype=torch.float32, **kw)
+    route = {"route": "fp64_tail", "stages": stages}
+    if s1.status != Status.SOLVED:
+        # Certificates, budget exhaustion and timeouts are terminal.
+        return dataclasses.replace(s1, escalation=route)
+    kkt_left = cfg.max_kkt - s1.kkt_passes
+    if kkt_left <= 0:
+        # Only the coarse tolerance was certified.
+        return dataclasses.replace(s1, status=Status.KKT_LIMIT,
+                                   escalation=route)
+    kw2 = dict(kw)
+    kw2["time_used"] = s1.solve_time  # already includes the incoming time
+    cfg2 = base.replace(max_kkt=kkt_left)
+    if auto:
+        cfg2 = cfg2.replace(step_scheme="halpern", adaptive=False)
+    s2 = run_stage(stages, "fp64", solve, problem, cfg2,
+                   dtype=torch.float64, x0=s1.x, y0=s1.y, **kw2)
+    history = None
+    if s1.history is not None or s2.history is not None:
+        history = (s1.history or []) + (s2.history or [])
+    return dataclasses.replace(
+        s2,
+        iterations=s1.iterations + s2.iterations,
+        restarts=s1.restarts + s2.restarts,
+        kkt_passes=s1.kkt_passes + s2.kkt_passes,
+        history=history,
+        escalation=route,
+    )
+
+
+def _solve_presolved(problem, cfg: SolverConfig, start, *, backend, dtype,
+                     device, seed, time_used, mesh, matrix_format,
+                     checkpoint_path, resume, log_history):
+    """presolve -> solve of the reduced LP -> primal and dual postsolve
+    (the JAX `solve`'s presolve branch).  A status presolve decides alone
+    returns at once, with no device work."""
+    from tpdlp_torch.presolve import presolve as run_presolve
+    from tpdlp_torch.presolve.reductions import (
+        postsolve as run_postsolve,
+        postsolve_dual as run_postsolve_dual,
+    )
+
+    pres = run_presolve(problem, backend=backend)
+    pre_time = time.perf_counter() - start
+    if pres.status != Status.RUNNING:
+        if pres.status == Status.SOLVED:
+            x_full = run_postsolve(np.zeros(0), pres.data)
+            y_full = run_postsolve_dual(np.zeros(0), x_full, pres.data)
+        else:  # infeasible/unbounded: no meaningful point
+            x_full = np.zeros(problem.n)
+            y_full = np.zeros(problem.m)
+        return SolveResult(
+            x=x_full, y=y_full,
+            objective=float(np.dot(problem.c, x_full)) + problem.obj_offset,
+            obj_offset=problem.obj_offset,
+            objective_sense=problem.objsense,
+            iterations=0, restarts=0, kkt_passes=0, status=pres.status,
+            solve_time=pre_time, primal_res=0.0, dual_res=0.0, gap=0.0,
+        )
+    # Checkpoint/resume and history ride on the inner (reduced) solve: a
+    # resume must use the same presolve backend.
+    inner = solve(
+        pres.problem, cfg, dtype=dtype, device=device,
+        seed=seed,
+        time_used=time_used + pre_time, mesh=mesh,
+        matrix_format=matrix_format, checkpoint_path=checkpoint_path,
+        resume=resume, log_history=log_history,
+    )
+    x_full = run_postsolve(inner.x, pres.data)
+    y_full = run_postsolve_dual(inner.y, x_full, pres.data)
+    return dataclasses.replace(
+        inner, x=x_full, y=y_full,
+        objective=float(np.dot(problem.c, x_full)) + problem.obj_offset,
+        obj_offset=problem.obj_offset, objective_sense=problem.objsense,
+    )
 
 
 def _as_dtype(dtype) -> torch.dtype:
@@ -292,6 +422,17 @@ def solve(
     chunk.  `resume=True` with an existing checkpoint continues from it:
     the problem, config and layout must be the ones it was written with
     (a checkpoint of the JAX package's `solve` loads too).
+
+    With dtype=None in fp32 (CUDA) and `config.tol` below
+    `config.escalation_tol` (and `precision_escalation` on, no warm start)
+    the solve escalates: `escalation_mode` "auto" or "refine" runs
+    iterative refinement (solver/refine.py), "fp64_tail" an fp32 stage
+    then a warm-started fp64 stage (except on `resume`).  The result's
+    `escalation` records the route and its inner solves.
+
+    `presolve`: "off" | "python" | "cpp" — reduce the LP first
+    (tpdlp_torch/presolve), solve the reduced LP and map x and y back.
+    Warm starts do not combine with presolve (ValueError).
     """
     start = time.perf_counter()
     cfg = config
@@ -299,6 +440,21 @@ def solve(
     problem.validate()
     _check_ported(mesh, matrix_format, presolve)
     dev = resolve_device(device)
+
+    if presolve != "off":
+        if x0 is not None or y0 is not None:
+            raise ValueError(
+                "presolve + warm start is unsupported: x0/y0 are in the "
+                "ORIGINAL variable/row space but the inner solve runs on "
+                "the reduced problem; disable presolve or drop the warm "
+                "start"
+            )
+        return _solve_presolved(
+            problem, cfg, start, backend=presolve, dtype=dtype, device=dev,
+            seed=seed, time_used=time_used, mesh=mesh,
+            matrix_format=matrix_format, checkpoint_path=checkpoint_path,
+            resume=resume, log_history=log_history,
+        )
 
     if dtype is None:
         dtype = default_dtype(dev)
@@ -309,10 +465,24 @@ def solve(
             and x0 is None
             and y0 is None
         ):
-            raise _unported(
-                "precision escalation (dtype=None with tol < "
-                "escalation_tol in fp32)", 15,
-            )
+            if cfg.escalation_mode == "fp64_tail":
+                if not resume:
+                    return _solve_escalated(
+                        problem, cfg, seed=seed, time_used=time_used,
+                        device=dev, mesh=mesh, matrix_format=matrix_format,
+                        checkpoint_path=checkpoint_path,
+                        log_history=log_history,
+                    )
+            else:  # "refine" and "auto"
+                from tpdlp_torch.solver.refine import solve_refined
+
+                return solve_refined(
+                    problem, cfg, solve_fn=solve, seed=seed,
+                    time_used=time_used, device=dev, mesh=mesh,
+                    matrix_format=matrix_format,
+                    checkpoint_path=checkpoint_path, resume=resume,
+                    log_history=log_history,
+                )
     dtype = _as_dtype(dtype)
 
     m, n = problem.m, problem.n
