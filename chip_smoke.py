@@ -101,21 +101,49 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 14. refine — mittelmann-s at tol 1e-8 with dtype=None, so the solve
              escalates to iterative refinement (fp32 solves on the card,
              fp64 outer loop on the host), the refine_1e8 protocol with
-             |gap| termination and max_kkt 500,000, twice: Solved, the
-             criteria held by an fp64 host recomputation, the objective
-             within 1e-8 relative of HiGHS (run in a worker process
-             meanwhile), the same j and x bits in both runs; rounds, the
-             wall and its split between the inner device solves and the
-             host.
+             |gap| termination and max_kkt 500,000: Solved, the criteria
+             held by an fp64 host recomputation, the objective within 1e-8
+             relative of HiGHS (run in a worker process meanwhile), and its
+             coarse stage replayed with the same k, n, j, x and y bits (the
+             whole run, replayed in full until PR 6, is cut to that for the
+             time limit); rounds, the wall and its split between the inner
+             device solves and the host.
 15. refine_band — the same on banded 8192 with matrix_format="band"
              (max_kkt 200,000), refined from the JAX package's fp32 stage
              result (tests/data/jax_coarse_banded_8192.npz): every
              correction through K2 (an elastic retry through CSR, as in
-             the JAX package), no K1 launch.
+             the JAX package), no K1 launch; its replay is the first
+             correction solve twice at 10,000 KKT passes, bit for bit (the
+             whole run until PR 6).
 16. fp64_tail — mittelmann-s at 1e-8 with escalation_mode="fp64_tail"
              (max_kkt 200,000): the fp32 and the fp64 stage apart (k, j,
              wall, launches), the status the JAX package's CPU run gives
              (Solved), held to the criteria on the host.
+17. fleet  — tpdlp_torch.solve_batch at its users' sizes, bench/fleet.py's
+             settings (tol 1e-4, fp32, Ruiz + adaptive + PWU,
+             restart_sync="global"): afiro-class x 10,000 over one shared
+             K (the JAX package's "10k perturbed instances" fleet), every
+             element Solved and held to 10*tol by a vectorised fp64 host
+             recomputation, instances/s; deg2-class x 64 with compaction,
+             then in fp64 with fixed steps and restart_sync="element",
+             whose elements 0, 21, 42 and 63 must give the k, n, j and
+             status of single solves on the card; 16 distinct deg2-shaped
+             LPs through the stacked K1; the banded 8192 fleet (8 seeds)
+             through "auto", which must choose the stacked band layout
+             (K2, no K1 launch); mittelmann-l x 8 through "sparse" (the
+             batched CSR kernel), replayed with the same x bits.  Each
+             fleet's launches equal its formula: two per issued iteration
+             and restart check, the initial state's two, the power
+             iteration's (single launches for a shared K).  The afiro
+             fleet is solved once more under torch.profiler: the device's
+             busy share, activities and busy time per iteration.
+18. fishnet — spectral_cast on mittelmann-s (the CLI's wiring: the scaled
+             problem, the dense layout), then the warm solve: Solved, held
+             on the host, cold and warm k and the cast's seconds;
+             `python -m tpdlp_torch.bench.fishnet_value --device cuda`:
+             cold and warm Solved on every row; the CLI sweep of the corpus
+             with --fishnet, then --batch_solve: every row linprog's
+             verdict.
 
 Every solve's kernel launches are held to the count the code implies: two
 per issued iteration and per issued restart check, plus the power
@@ -226,6 +254,12 @@ REFINE_KKT = 500_000
 #: coarse result both stall (ROADMAP.md queue 3).
 REFINE_BAND_KKT = 200_000
 REFINE_BAND_START = "tests/data/jax_coarse_banded_8192.npz"
+#: The bit-for-bit replays of the refinement phases, cut for the time
+#: limit (each phase's whole run twice until PR 6): refine replays its
+#: coarse stage against the first run's; refine_band runs its first
+#: correction solve (round 0, 66,000 iterations in full) twice at this
+#: budget.
+REPLAY_PREFIX_KKT = 10_000
 BAND_8192 = dict(n=8192, m_ineq=4096, m_eq=2048, bandwidth=65, seed=2)
 #: The fp64 tail's budget, and the JAX package's status for the phase's
 #: instance, config and budget from its own run on the CPU (PERF.md §6,
@@ -238,6 +272,26 @@ TAIL_JAX_STATUS = "SOLVED"
 #: Seconds HiGHS may take per method on an oracle of the high-accuracy
 #: phases (it runs in a worker process from the end of the kernel timings).
 HIGHS_SECONDS = 900.0
+#: The fleets (tpdlp_torch/bench/fleet.py's settings: Ruiz, adaptive steps,
+#: PWU, tol 1e-4, fp32, restart_sync="global").  afiro-class x 10,000 with
+#: one shared K is the JAX package's "10k perturbed instances" fleet
+#: (perturbed_fleet, rel 0.05, seed 0); deg2-class x 64 is fleet.py's
+#: default batch, run again in fp64 with fixed steps and
+#: restart_sync="element", whose FLEET_ELEMENTS must give single solves'
+#: k, n, j and status; FLEET_DISTINCT distinct LPs of deg2-class's shape
+#: (seeds 0-15) stack K1; fleet.py --banded's banded 8192 x 8 (seeds 0-7)
+#: stacks K2 through "auto"; mittelmann-l x FLEET_SPARSE through "sparse"
+#: shares one CSR K.
+FLEET_AFIRO = 10_000
+FLEET_DEG2 = 64
+FLEET_ELEMENTS = (0, 21, 42, 63)
+FLEET_DISTINCT = 16
+DEG2_SHAPE = dict(n=757, m_ineq=280, m_eq=164, density=0.05)
+FLEET_BAND = ("8192,4096,2048,65", 8)
+FLEET_SPARSE = 8
+#: The batched kernels' rows: the afiro fleet's K and K' at a ragged
+#: B = 37 as well as at 10,000.
+RAGGED_B = 37
 
 #: Data-sheet rates by card: HBM bytes/s, fp32 and fp64 flop/s outside the
 #: tensor cores (NVIDIA data sheets; SXM unless the name says otherwise).
@@ -286,7 +340,8 @@ _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
-_KERNEL_NAME = re.compile(r"\d([a-z_]+_kernel)I([fd])(?:Li(\d+)E)?E")
+_KERNEL_NAME = re.compile(
+    r"\d([a-z_]+_kernel)I([fd])(?:Li(\d+)E)?(?:Lb([01])E)?E")
 
 
 def ptxas_report(K) -> list:
@@ -308,7 +363,8 @@ def ptxas_report(K) -> list:
             k = _KERNEL_NAME.search(m.group(1))
             name = m.group(1) if k is None else (
                 f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
-                f"{', ' + k.group(3) if k.group(3) else ''}>")
+                f"{', ' + k.group(3) if k.group(3) else ''}"
+                f"{', batched' if k.group(4) == '1' else ''}>")
             cur = {"kernel": name}
             out.append(cur)
         elif cur is not None and (m := _PTXAS_SPILL.search(line)):
@@ -446,18 +502,23 @@ def kernels_phase(dev, rates):
     return rows
 
 
+def _bound(bytes_, flops, rates, dtype):
+    """(bound_ms, bound_by) of `bytes_` moved once against `flops` at the
+    card's peak for `dtype`."""
+    bw, f32_peak, f64_peak = rates
+    t_bytes = bytes_ / bw * 1e3
+    t_ops = flops / (f32_peak if dtype == torch.float32 else f64_peak) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def _band_bound(m, n, ngroups, R, WB, item, rates, dtype):
     """(bound_ms, bound_by) of one band product: the live slab rows, x,
     the live starts and y moved once, against 2 flops per live slab
     element."""
-    bw, f32_peak, f64_peak = rates
     rows = min(m, ngroups * R)
-    bytes_ = (rows * WB + n + m) * item + 4 * -(-rows // R)
-    t_bytes = bytes_ / bw * 1e3
-    peak = f32_peak if dtype == torch.float32 else f64_peak
-    t_ops = 2 * rows * WB / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bound((rows * WB + n + m) * item + 4 * -(-rows // R),
+                  2 * rows * WB, rates, dtype)
 
 
 def _random_band(m, n, WB, dtype, gen, dev):
@@ -923,6 +984,24 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _device_trace(prof, kernel):
+    """The device records of a torch.profiler trace: (busy us, events,
+    us by name, `kernel`'s us, `kernel`'s events)."""
+    spans, by_name, kernel_events = [], {}, 0
+    # The trace's raw records: prof.events() first builds a Python event
+    # tree, about 70 µs an event (these traces hold up to 240,000).
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        start, us = e.start_ns() / 1e3, e.duration_ns() / 1e3
+        spans.append((start, start + us))
+        name = e.name()
+        by_name[name] = by_name.get(name, 0.0) + us
+        kernel_events += kernel in name
+    kernel_us = sum(v for k, v in by_name.items() if kernel in k)
+    return _busy_us(spans), len(spans), by_name, kernel_us, kernel_events
+
+
 def _profile_solve(dev, p, kernel, max_kkt, extra=None, **solve_kw):
     """One solve (seed 0) under torch.profiler, device activity only: the
     device's busy share of the solve's wall time and the device time by
@@ -945,25 +1024,14 @@ def _profile_solve(dev, p, kernel, max_kkt, extra=None, **solve_kw):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     counted = K.launches[kernel] - before
-    spans, by_name, kernel_events = [], {}, 0
-    # The trace's raw records: prof.events() first builds a Python event
-    # tree, about 70 µs an event (these traces hold up to 240,000).
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        start, us = e.start_ns() / 1e3, e.duration_ns() / 1e3
-        spans.append((start, start + us))
-        name = e.name()
-        by_name[name] = by_name.get(name, 0.0) + us
-        kernel_events += kernel in name
-    busy = _busy_us(spans)
+    busy, events, by_name, kernel_us, kernel_events = _device_trace(prof,
+                                                                    kernel)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    kernel_us = sum(v for k, v in by_name.items() if kernel in k)
     emit("profile", instance=p.name, seed=0, status=r.status_string,
          extra=extra or {}, k=r.iterations, j=r.kkt_passes, max_kkt=max_kkt,
-         wall_ms=wall_us / 1e3, device_events=len(spans),
+         wall_ms=wall_us / 1e3, device_events=events,
          device_busy_ms=busy / 1e3,
-         device_busy_share=busy / wall_us if spans else None,
+         device_busy_share=busy / wall_us if events else None,
          kernel=kernel, kernel_launches=counted, kernel_events=kernel_events,
          trace_complete=kernel_events == counted,
          kernel_ms=kernel_us / 1e3,
@@ -974,7 +1042,7 @@ def _profile_solve(dev, p, kernel, max_kkt, extra=None, **solve_kw):
     if not kernel_events:
         raise AssertionError(f"profile: no {kernel} event in the trace")
     return {"k": r.iterations, "wall_us": wall_us, "busy_us": busy,
-            "events": len(spans), "kernel_us": kernel_us,
+            "events": events, "kernel_us": kernel_us,
             "kernel_events": kernel_events, "launches": counted,
             "restart_period": cfg.restart_period}
 
@@ -1076,13 +1144,8 @@ def _csr_bound(rows, cols, nnz, item, rates, dtype):
     """(bound_ms, bound_by) of one CSR product: each value and column
     index, the row offsets, x and y moved once, against 2 flops a
     nonzero."""
-    bw, f32_peak, f64_peak = rates
-    bytes_ = nnz * (item + 4) + (rows + 1) * 4 + (cols + rows) * item
-    t_bytes = bytes_ / bw * 1e3
-    peak = f32_peak if dtype == torch.float32 else f64_peak
-    t_ops = 2 * nnz / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bound(nnz * (item + 4) + (rows + 1) * 4 + (cols + rows) * item,
+                  2 * nnz, rates, dtype)
 
 
 def csr_kernels_phase(dev, rates, p_l, p_1m):
@@ -1540,29 +1603,39 @@ def _start_result(path):
                        solve_time=0.0, primal_res=0.0, dual_res=0.0, gap=0.0)
 
 
-def _high_accuracy_run(dev, p, cfg, kernel, start=None, **solve_kw):
-    """One dtype=None solve of `p` at cfg.tol (the escalation reroute),
-    counted: (result, wall, launches, its row).  With `start` (a coarse
-    stage's SolveResult), refinement runs from it: solve_refined with the
-    coarse stage handed back instead of solved."""
+def _high_accuracy_run(dev, p, cfg, kernel, start=None, record=None,
+                       **solve_kw):
+    """One dtype=None solve of `p` at cfg.tol through the public entry
+    (the escalation reroute), counted: (result, wall, launches, its row).
+    The reroute hands solver/solve.py's module-level `solve` to
+    refinement as its inner solver; for this call that name is wrapped:
+    with `start` (a coarse stage's SolveResult) the coarse stage is handed
+    back instead of solved, and with a list `record` each inner solve's
+    (problem, config, kwargs, result) is appended to it."""
+    import tpdlp_torch.solver.solve as S
     from tpdlp_torch import solve
     from tpdlp_torch.ops import _kernels as K
-    from tpdlp_torch.solver.refine import _terminated, solve_refined
+    from tpdlp_torch.solver.refine import _terminated
     from tpdlp_torch.solver.refine import host_residuals as refine_res
 
+    inner = S.solve
+
     def staged(problem, config, **kw):
-        if "+refine" in problem.name:
-            return solve(problem, config, **kw)
-        return start
+        if start is not None and "+refine" not in problem.name:
+            return start
+        r = inner(problem, config, **kw)
+        if record is not None:
+            record.append((problem, config, kw, r))
+        return r
 
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
-    if start is None:
+    S.solve = staged
+    try:
         r = solve(p, cfg, device=dev, seed=0, **solve_kw)
-    else:
-        r = solve_refined(p, cfg, solve_fn=staged, device=dev, seed=0,
-                          **solve_kw)
+    finally:
+        S.solve = inner
     wall = time.perf_counter() - t0
     launches = dict(K.launches)
     esc = r.escalation or {}
@@ -1622,35 +1695,47 @@ def _high_accuracy_run(dev, p, cfg, kernel, start=None, **solve_kw):
     return r, wall, row
 
 
-def refine_phase(dev, name, p, oracle, kernel, max_kkt, start=None,
+def refine_phase(dev, name, p, oracle, kernel, max_kkt, replay, start=None,
                  **solve_kw):
     """1e-8 through the default escalation (dtype=None on CUDA:
     refinement), the refine_1e8 protocol with |gap| termination (Ruiz,
-    adaptive steps, PWU) and a budget of `max_kkt`, twice (from `start`,
-    a saved coarse stage, if given): Solved, the criteria held by an fp64
+    adaptive steps, PWU) and a budget of `max_kkt` (from `start`, a saved
+    coarse stage, if given): Solved, the criteria held by an fp64
     recomputation on the host, the objective within HIGH_TOL relative of
-    HiGHS (run in a worker process from the start), the same j and x bits
-    in both runs, every inner product in `kernel` (an elastic retry's in
-    CSR) and launches = the inner solves' formulas.  Returns the first
+    HiGHS (run in a worker process from the start), every inner product
+    in `kernel` (an elastic retry's in CSR) and launches = the inner
+    solves' formulas; then a replay, bit for bit: with replay="coarse" its
+    first inner solve again (the same k, n, j, x and y bits); with
+    "prefix" its first inner solve, its budget cut to REPLAY_PREFIX_KKT,
+    twice (the same bits).  Both cut the phase's depth for the script's
+    time limit (until PR 6 it replayed the whole run).  Returns the first
     run's row."""
-    from tpdlp_torch import SolverConfig, Status
+    from tpdlp_torch import SolverConfig, Status, solve
 
     cfg = SolverConfig(tol=HIGH_TOL, scaling="ruiz", adaptive=True,
                        primal_weight_update=True, max_kkt=max_kkt,
                        abs_gap_termination=True)
     s1 = _start_result(start) if start else None
-    (r, _, row), (r2, _, row2) = [
-        _high_accuracy_run(dev, p, cfg, kernel, s1, **solve_kw)
-        for _ in range(2)]
+    record = []
+    r, _, row = _high_accuracy_run(dev, p, cfg, kernel, s1, record,
+                                   **solve_kw)
+    t0 = time.perf_counter()
+    problem, config, kw, first = record[0]
+    if replay == "prefix":
+        config = config.replace(max_kkt=REPLAY_PREFIX_KKT)
+        first = solve(problem, config, **kw)
+    r2 = solve(problem, config, **kw)
+    same = ((first.iterations, first.restarts, first.kkt_passes)
+            == (r2.iterations, r2.restarts, r2.kkt_passes)
+            and np.array_equal(first.x, r2.x)
+            and np.array_equal(first.y, r2.y))
     oracle_obj, oracle_s = oracle.result()
     rel_err = (abs(r.objective - oracle_obj) / max(1.0, abs(oracle_obj))
                if oracle_obj is not None else None)
-    same = (r.kkt_passes == r2.kkt_passes and r.iterations == r2.iterations
-            and np.array_equal(r.x, r2.x) and np.array_equal(r.y, r2.y))
     emit(name, gap_criterion="abs", max_kkt=max_kkt, start=start, **row,
          oracle_obj=oracle_obj, oracle_s=oracle_s, rel_err=rel_err,
-         second_wall_s=row2["wall_s"], second_j=r2.kkt_passes,
-         replay_bit_identical=same)
+         replay=replay, replay_wall_s=time.perf_counter() - t0,
+         replay_j=r2.kkt_passes, replay_bit_identical=same)
     if row["route"] != "refine" or r.status != Status.SOLVED:
         raise AssertionError(f"{name}: {r.status_string} by "
                              f"{row['route']}")
@@ -1660,7 +1745,7 @@ def refine_phase(dev, name, p, oracle, kernel, max_kkt, start=None,
         raise AssertionError(f"{name}: objective {r.objective}, HiGHS "
                              f"{oracle_obj}")
     if not same:
-        raise AssertionError(f"{name}: the two runs differ")
+        raise AssertionError(f"{name}: the {replay} replay differs")
     return row
 
 
@@ -1733,6 +1818,492 @@ def presolve_phase(oracle, dense_rows):
             if abs(a - b) > 10 * TOL * (1 + abs(b)):
                 raise AssertionError(f"presolve {backend}: {f} objective "
                                      f"{a}, without presolve {b}")
+
+
+def fleet_instances(p_l):
+    """The fleets' instances: afiro-class and deg2-class (suite seed 7,
+    perturbed per fleet), the FLEET_DISTINCT deg2-shaped LPs (seeds 0-15),
+    fleet.py --banded's banded 8192 fleet and mittelmann-l."""
+    from tpdlp_torch import generate_feasible_lp
+    from tpdlp_torch.bench.fleet import banded_fleet
+    from tpdlp_torch.bench.suite import build_suite
+
+    (afiro,) = build_suite(("small",), names=("afiro-class",))
+    (deg2,) = build_suite(("medium",), names=("deg2-class",))
+    spec, batch = FLEET_BAND
+    return {
+        "afiro": afiro, "deg2": deg2,
+        "distinct": [generate_feasible_lp(**DEG2_SHAPE, seed=s)
+                     for s in range(FLEET_DISTINCT)],
+        "banded": banded_fleet(spec, batch),
+        "mittelmann-l": p_l,
+    }
+
+
+def _batch_dense_side(M, B):
+    """One direction of a dense batch case: M (m, n) shared or
+    (B, m, n) stacked."""
+    from tpdlp_torch.ops import _kernels as K
+
+    stacked = M.dim() == 3
+    m, n = M.shape[-2:]
+    return dict(
+        cols=n, inner=n, kernel="dense_matvec",
+        batch=lambda X: K.dense_matvec_batch(M, X),
+        single=lambda b, x: K.dense_matvec(M[b] if stacked else M, x),
+        plain=lambda X: K.dense_matvec_batch_plain(M, X),
+        # torch.bmm for a stack; K @ X' (cuBLAS, TF32 off) for a shared K.
+        library=((lambda X: (lambda: torch.bmm(M, X[:, :, None])))
+                 if stacked else (lambda X: (lambda: torch.matmul(M, X.T)))),
+        bytes=((B if stacked else 1) * m * n + B * (m + n))
+        * M.element_size(),
+        flops=2 * B * m * n, shape=list(M.shape))
+
+
+def _batch_band_side(mat, B):
+    """One direction of a band stack (StackedBandMat)."""
+    from tpdlp_torch.ops import _kernels as K
+
+    slabs, starts, m, n = mat.slabs, mat.starts, mat.m, mat.n
+    _, G, R, WB = slabs.shape
+    rows = min(m, G * R)
+
+    def library(X):
+        # torch.bmm over the gathered windows (the gather outside the
+        # timed call, as for the single kernel's yardstick).
+        win = K._band_windows_batch(starts, X, n, WB).reshape(-1, WB, 1)
+        S = slabs.reshape(-1, R, WB)
+        return lambda: torch.bmm(S, win)
+
+    return dict(
+        cols=n, inner=WB, kernel="band_matvec",
+        batch=lambda X: K.band_matvec_batch(slabs, starts, X, m, n),
+        single=lambda b, x: K.band_matvec(slabs[b], starts[b], x, m, n),
+        plain=lambda X: K.band_matvec_batch_plain(slabs, starts, X, m, n),
+        library=library,
+        bytes=B * ((rows * WB + n + m) * slabs.element_size()
+                   + 4 * -(-rows // R)),
+        flops=2 * B * rows * WB, shape=list(slabs.shape))
+
+
+def _batch_csr_side(mat, B):
+    """One direction of a shared CSR K (torch sparse_csr)."""
+    from tpdlp_torch.ops import _kernels as K
+
+    crow, col, val = mat.crow_indices(), mat.col_indices(), mat.values()
+    rows, cols = mat.shape
+    nnz = val.numel()
+    return dict(
+        cols=cols, inner=int(crow.diff().max()), kernel="csr_matvec",
+        batch=lambda X: K.csr_matvec_batch(crow, col, val, X),
+        single=lambda b, x: K.csr_matvec(crow, col, val, x),
+        plain=lambda X: K.csr_matvec_batch_plain(crow, col, val, X),
+        # cuSPARSE's product of the same CSR tensor with X'.
+        library=lambda X: (lambda: mat @ X.T),
+        bytes=nnz * (val.element_size() + 4) + (rows + 1) * 4
+        + B * (rows + cols) * val.element_size(),
+        flops=2 * B * nnz, shape=[rows, cols], nnz=nnz)
+
+
+def batch_kernels_phase(dev, rates, fleets):
+    """Each kernel's batch axis at this slice's shapes (the fleets' K and
+    K'): against its twin (error, bit-identical repeats), every element
+    bit for bit a single launch on it, cold and loop times by CUDA events
+    beside the twin and the one PyTorch call that computes the same
+    function (torch.bmm for a stack, K @ X' for a shared dense or CSR K),
+    and the bound (a shared K's bytes counted once)."""
+    from tpdlp_torch.batch.stacked import (
+        StackedDenseOp,
+        band_stack,
+        band_stack_op,
+    )
+    from tpdlp_torch.ops.exact_dense import ExactDenseOp
+    from tpdlp_torch.ops.sparse import SparseOp
+
+    flush = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    afiro, deg2, distinct, banded, p_l = (
+        fleets["afiro"], fleets["deg2"], fleets["distinct"],
+        fleets["banded"], fleets["mittelmann-l"])
+
+    def dense_shared(p, dtype):
+        op = ExactDenseOp.build(torch.as_tensor(p.K.toarray(), dtype=dtype,
+                                                device=dev))
+        return op.mat, op.bwd[:, : op.m]
+
+    cases = []
+    for label, p, B, dtype in (
+            ("afiro-class shared", afiro, FLEET_AFIRO, torch.float32),
+            ("afiro-class shared, ragged", afiro, RAGGED_B, torch.float32),
+            ("deg2-class shared", deg2, FLEET_DEG2, torch.float32),
+            ("deg2-class shared", deg2, FLEET_DEG2, torch.float64)):
+        fwd, bwd = dense_shared(p, dtype)
+        cases.append((label, B, dtype, _batch_dense_side(fwd, B),
+                      _batch_dense_side(bwd, B)))
+    m, n = max(q.m for q in distinct), max(q.n for q in distinct)
+    st = StackedDenseOp.from_problems(distinct, m, n, torch.float32, dev)
+    cases.append(("deg2-shaped stack", len(distinct), torch.float32,
+                  _batch_dense_side(st.mat, len(distinct)),
+                  _batch_dense_side(st.bwd[:, :, :m], len(distinct))))
+    m, n = max(q.m for q in banded), max(q.n for q in banded)
+    bop = band_stack_op(band_stack(banded, torch.float32, m, n), m, n, dev)
+    cases.append(("banded-8192 stack", len(banded), torch.float32,
+                  _batch_band_side(bop.fwd, len(banded)),
+                  _batch_band_side(bop.bwd, len(banded))))
+    sop = SparseOp.from_scipy(p_l.K, torch.float32, device=dev)
+    cases.append(("mittelmann-l shared", FLEET_SPARSE, torch.float32,
+                  _batch_csr_side(sop.mat, FLEET_SPARSE),
+                  _batch_csr_side(sop.mat_t, FLEET_SPARSE)))
+
+    rows = []
+    for label, B, dtype, *sides in cases:
+        pair = []
+        for side, c in zip(("K", "K'"), sides):
+            X = torch.randn((B, c["cols"]), generator=gen, dtype=dtype,
+                            device=dev)
+            Y = c["batch"](X)
+            Y2 = c["batch"](X)
+            plain = c["plain"](X)
+            # Each single launch gets its element's x as a vector of its
+            # own (the single kernel takes a 16-byte-aligned x).
+            xs = [X[b].clone() for b in range(B)]
+            singles = torch.stack([c["single"](b, xs[b]) for b in range(B)])
+            torch.cuda.synchronize()
+            eps = 6e-8 if dtype == torch.float32 else 1.2e-16
+            tol = eps * max(4, c["inner"]) ** 0.5 * 30
+            rel = float(((Y - plain).abs() / (1 + plain.abs())).max())
+            name = c["kernel"] + "_batch"
+            if not rel < tol:
+                raise AssertionError(f"{name} {label} {side}: rel err {rel}")
+            if not torch.equal(Y, Y2):
+                raise AssertionError(f"{name} {label} {side}: repeats "
+                                     "differ")
+            if not torch.equal(Y, singles):
+                bad = int((Y != singles).any(dim=1).nonzero()[0])
+                raise AssertionError(f"{name} {label} {side}: element {bad}"
+                                     " differs from its single launch")
+            bound, bound_by = _bound(c["bytes"], c["flops"], rates, dtype)
+            lib = c["library"](X)
+            row = {
+                "kernel": name, "case": f"{label} {side}", "batch": B,
+                "shape": c["shape"],
+                "dtype": str(dtype).replace("torch.", ""),
+                "kernel_ms": time_launches(lambda: c["batch"](X), flush),
+                "plain_ms": time_launches(lambda: c["plain"](X), flush),
+                "library_ms": time_launches(lib, flush),
+                "single_launches_ms": time_launches(
+                    lambda: [c["single"](b, xs[b]) for b in range(B)],
+                    flush) if B <= FLEET_DEG2 else None,
+                "bound_ms": bound, "bound_by": bound_by,
+                "max_rel_err": rel, "max_abs_err": float(
+                    (Y - plain).abs().max()), "tol": tol,
+                "per_element_bit_identical": True,
+                "last_element": B - 1,
+            }
+            if "nnz" in c:
+                row["nnz"] = c["nnz"]
+            row["bound_share"] = bound / row["kernel_ms"]
+            emit("kernels", **row)
+            rows.append(row)
+            pair.append((c, X, lib, row))
+            del Y, Y2, plain, singles, xs
+        (a, xa, la, ra), (b, xb, lb, rb) = pair
+        loop = {
+            "kernel_loop_ms": time_loop(lambda: a["batch"](xa),
+                                        lambda: b["batch"](xb)),
+            "library_loop_ms": time_loop(la, lb),
+        }
+        emit("kernels_loop", kernel=a["kernel"] + "_batch", case=label,
+             batch=B, dtype=str(dtype).replace("torch.", ""),
+             bound_ms=(ra["bound_ms"] + rb["bound_ms"]) / 2, **loop)
+        ra.update(loop)
+        rb.update(loop)
+        del pair, a, b, xa, xb, la, lb
+    del cases, st, bop, sop, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fleet_residuals(problems, results):
+    """Each element's relative primal residual, dual residual and gap, its
+    bound violation and least inequality dual, on its unscaled problem in
+    fp64 on the host (residuals.py's definitions); a fleet that shares one
+    K in one vectorised pass.  Returns a dict of (B,) arrays."""
+    shared = all(p.K is problems[0].K for p in problems)
+    if not shared:
+        rows = [host_residuals(p, r.x, r.y)
+                for p, r in zip(problems, results)]
+        return {k: np.array([row[k] for row in rows]) for k in rows[0]}
+    p0 = problems[0]
+    K = sp.csr_matrix(p0.K).astype(np.float64)
+    X = np.stack([np.asarray(r.x, np.float64) for r in results])
+    Y = np.stack([np.asarray(r.y, np.float64) for r in results])
+    C = np.stack([p.c for p in problems])
+    Q = np.stack([p.q for p in problems])
+    L = np.stack([p.l for p in problems])
+    U = np.stack([p.u for p in problems])
+    mi = p0.m_ineq
+    res = (K @ X.T).T - Q
+    res[:, :mi] = np.minimum(res[:, :mi], 0.0)
+    grad = C - (K.T @ Y.T).T
+    lo, hi = np.isneginf(L), np.isposinf(U)
+    lam = grad.copy()
+    lam = np.where(lo & ~hi, np.minimum(grad, 0.0), lam)
+    lam = np.where(~lo & hi, np.maximum(grad, 0.0), lam)
+    lam = np.where(lo & hi, 0.0, lam)
+    l_d, u_d = np.where(lo, 0.0, L), np.where(hi, 0.0, U)
+    prim = np.sum(C * X, axis=1)
+    adj = (np.sum(Q * Y, axis=1) + np.sum(l_d * np.maximum(lam, 0), axis=1)
+           + np.sum(u_d * np.minimum(lam, 0), axis=1))
+    return {
+        "rel_primal": np.linalg.norm(res, axis=1)
+        / (1 + np.linalg.norm(Q, axis=1)),
+        "rel_dual": np.linalg.norm(grad - lam, axis=1)
+        / (1 + np.linalg.norm(C, axis=1)),
+        "rel_gap": np.abs(adj - prim) / (1 + np.abs(prim) + np.abs(adj)),
+        "bound_violation": np.max(np.maximum(L - X, 0)
+                                  + np.maximum(X - U, 0), axis=1),
+        "min_ineq_dual": Y[:, :mi].min(axis=1) if mi else np.zeros(len(X)),
+    }
+
+
+def _fleet_run(dev, name, problems, cfg, kernel, single_kernel=None,
+               dtype=torch.float32, check=True, **kw):
+    """One counted solve_batch (launch counts and issued iterations and
+    restart checks set to 0 just before it): every element Solved and
+    held to 10*tol by fleet_residuals (`check`), `kernel` launched its
+    formula's count (two per issued iteration and restart check, the
+    initial state's two, and a stack's batched power iteration), a shared
+    K's power iteration in `single_kernel`, nothing else launched.
+    Returns (results, row)."""
+    from tpdlp_torch import Status, solve_batch
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.solver import loop as L
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    L.reset_launched()
+    t0 = time.perf_counter()
+    rs = solve_batch(problems, cfg, dtype=dtype, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    launches, issued = dict(K.launches), dict(L.launched)
+    power = 2 * cfg.power_iters + 1
+    expect = {kernel: 2 * issued["iterations"]
+              + 2 * issued["restart_checks"] + 2
+              + (0 if single_kernel else power)}
+    if single_kernel:
+        expect[single_kernel] = power
+    statuses = {}
+    for r in rs:
+        statuses[r.status_string] = statuses.get(r.status_string, 0) + 1
+    ks = [r.iterations for r in rs]
+    row = {
+        "fleet": name, "batch": len(problems),
+        "shape": [max(p.m for p in problems), max(p.n for p in problems)],
+        "dtype": str(dtype).replace("torch.", ""), "statuses": statuses,
+        "wall_s": wall, "instances_per_s": len(problems) / wall,
+        "k_max": max(ks), "k_median": float(np.median(ks)),
+        "launches": launches, "launches_expected": expect,
+        "iterations_issued": issued["iterations"],
+        "restart_checks_issued": issued["restart_checks"],
+        **{k: v for k, v in kw.items() if isinstance(v, (str, bool))},
+    }
+    if check:
+        res = fleet_residuals(problems, rs)
+        row.update({f"max_{k}": float(v.max()) for k, v in res.items()
+                    if k != "min_ineq_dual"})
+        row["min_ineq_dual"] = float(res["min_ineq_dual"].min())
+    emit("fleet", **row)
+    if check:
+        if statuses != {"Solved": len(problems)}:
+            raise AssertionError(f"{name}: {statuses}")
+        worst = max(row["max_rel_primal"], row["max_rel_dual"],
+                    row["max_rel_gap"], row["max_bound_violation"])
+        if not worst <= 10 * cfg.tol or row["min_ineq_dual"] < 0:
+            raise AssertionError(f"{name}: host check {row}")
+    for k, v in launches.items():
+        if v != expect.get(k, 0):
+            raise AssertionError(f"{name}: {k} launched {v} times, "
+                                 f"expected {expect.get(k, 0)}")
+    if any(r.status == Status.RUNNING for r in rs):
+        raise AssertionError(f"{name}: an element left RUNNING")
+    return rs, row
+
+
+def _profile_fleet(dev, problems, cfg, kernel, counted_row):
+    """The fleet solved again under torch.profiler (device activity only):
+    the device's busy share of the wall, device activities and busy time
+    per issued iteration, `kernel`'s time a launch and its share of the
+    busy time, beside the counted run's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpdlp_torch import solve_batch
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_batch(problems, cfg, dtype=torch.float32, device=dev,
+                    restart_sync="global")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # The batch axis is the single kernel's own symbol (the trace's name):
+    # its events include the power iteration's single launches.
+    busy, events, by_name, kernel_us, kernel_events = _device_trace(
+        prof, kernel.removesuffix("_batch"))
+    iters = counted_row["iterations_issued"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    emit("profile_fleet", fleet=counted_row["fleet"],
+         batch=counted_row["batch"], wall_ms=wall_us / 1e3,
+         counted_wall_ms=counted_row["wall_s"] * 1e3, device_events=events,
+         device_busy_ms=busy / 1e3,
+         device_busy_share=busy / wall_us if events else None,
+         events_per_iteration=events / iters,
+         busy_us_per_iteration=busy / iters,
+         wall_us_per_iteration=wall_us / iters,
+         kernel=kernel, kernel_events=kernel_events,
+         kernel_us_per_launch=kernel_us / kernel_events if kernel_events
+         else None,
+         kernel_share_of_busy=kernel_us / busy if busy else None,
+         top_kernels_ms=[[k[:80], v / 1e3] for k, v in top])
+    if not kernel_events:
+        raise AssertionError(f"profile_fleet: no {kernel} event")
+
+
+def fleet_phase(dev, fleets):
+    """The fleets (FLEET_* above) through `solve_batch` at full size: the
+    afiro-class x 10,000 shared-K fleet, deg2-class x 64 (fp32 adaptive
+    with compaction; fp64 fixed steps, "element", FLEET_ELEMENTS held to
+    single solves on the card), the distinct deg2-shaped stack over K1,
+    the distinct banded 8192 stack over K2 through "auto" (band chosen, K1
+    never launched) and mittelmann-l x 8 through "sparse" (replayed: the
+    same x bits).  Returns {kernel: its launches in its fleet}."""
+    from tpdlp_torch import SolverConfig, Status, solve
+    from tpdlp_torch.bench.fleet import fleet_config, perturbed_fleet
+
+    cfg = fleet_config(TOL, MAX_KKT)
+    sync = dict(restart_sync="global")
+    afiro_fleet = perturbed_fleet(fleets["afiro"], FLEET_AFIRO, rel=0.05,
+                                  seed=0)
+    # A warm-up fleet (other costs) takes the allocator's first growth.
+    _fleet_run(dev, "afiro-class warm-up", perturbed_fleet(
+        fleets["afiro"], FLEET_DEG2, rel=0.05, seed=1), cfg,
+        "dense_matvec_batch", "dense_matvec", **sync)
+    _, afiro = _fleet_run(dev, "afiro-class", afiro_fleet, cfg,
+                          "dense_matvec_batch", "dense_matvec", **sync)
+    _profile_fleet(dev, afiro_fleet, cfg, "dense_matvec_batch", afiro)
+
+    deg2_fleet = perturbed_fleet(fleets["deg2"], FLEET_DEG2, rel=0.05,
+                                 seed=0)
+    _fleet_run(dev, "deg2-class", deg2_fleet, cfg, "dense_matvec_batch",
+               "dense_matvec", compact=True, **sync)
+    fixed = SolverConfig(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz",
+                         adaptive=False, primal_weight_update=True,
+                         time_limit=600)
+    rs, _ = _fleet_run(dev, "deg2-class fp64 element", deg2_fleet, fixed,
+                       "dense_matvec_batch", "dense_matvec",
+                       dtype=torch.float64, restart_sync="element")
+    same = []
+    for b in FLEET_ELEMENTS:
+        s = solve(deg2_fleet[b], fixed, dtype=torch.float64, device=dev,
+                  seed=0)
+        r = rs[b]
+        same.append([b, r.status_string, s.status_string,
+                     [r.iterations, r.restarts, r.kkt_passes],
+                     [s.iterations, s.restarts, s.kkt_passes]])
+        if (r.status, r.iterations, r.restarts, r.kkt_passes) != (
+                s.status, s.iterations, s.restarts, s.kkt_passes):
+            emit("fleet_elements", elements=same)
+            raise AssertionError(f"deg2 fp64 element {b}: fleet {same[-1]}")
+    emit("fleet_elements", elements=same)
+
+    _fleet_run(dev, "deg2-shaped distinct", fleets["distinct"], cfg,
+               "dense_matvec_batch", matrix_format="dense", **sync)
+    _, band = _fleet_run(dev, "banded-8192 distinct", fleets["banded"], cfg,
+                         "band_matvec_batch", matrix_format="auto",
+                         shared_operator=False, **sync)
+
+    sparse_fleet = perturbed_fleet(fleets["mittelmann-l"], FLEET_SPARSE,
+                                   rel=0.05, seed=0)
+    rs1, sparse = _fleet_run(dev, "mittelmann-l shared sparse",
+                             sparse_fleet, cfg, "csr_matvec_batch",
+                             "csr_matvec", matrix_format="sparse", **sync)
+    rs2, _ = _fleet_run(dev, "mittelmann-l shared sparse replay",
+                        sparse_fleet, cfg, "csr_matvec_batch", "csr_matvec",
+                        check=False, matrix_format="sparse", **sync)
+    replay = all(a.iterations == b.iterations and np.array_equal(a.x, b.x)
+                 and np.array_equal(a.y, b.y) for a, b in zip(rs1, rs2))
+    emit("fleet_replay", fleet="mittelmann-l shared sparse",
+         bit_identical=replay)
+    if not replay or any(r.status != Status.SOLVED for r in rs2):
+        raise AssertionError("mittelmann-l sparse fleet: the replay differs")
+    return {"dense_matvec": afiro["launches"]["dense_matvec_batch"],
+            "band_matvec": band["launches"]["band_matvec_batch"],
+            "csr_matvec": sparse["launches"]["csr_matvec_batch"]}
+
+
+def fishnet_phase(dev, p_s, cold, oracle):
+    """The fishnet warm start: spectral_cast on mittelmann-s at full size
+    (the CLI's wiring: the scaled problem, the solve's dense layout), then
+    the warm solve (Solved, held on the host; cold k from the solve phase
+    beside it); `python -m tpdlp_torch.bench.fishnet_value --device cuda`
+    over its default classes (cold and warm Solved on every row); and the
+    CLI sweep of the corpus with --fishnet, then --batch_solve (every
+    row's status linprog's verdict)."""
+    import os
+
+    from tpdlp_torch import solve
+    from tpdlp_torch.bench.suite import INSTANCES_DIR
+    from tpdlp_torch.fishnet import fishnet_start
+    from tpdlp_torch.ops import _kernels as K
+
+    cfg = _main_cfg()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    x0, y0 = fishnet_start(p_s, torch.float32, dev, "dense", cfg.scaling,
+                           seed=0)
+    cast_s = time.perf_counter() - t0
+    cast_launches = dict(K.launches)
+    warm = solve(p_s, cfg, dtype=torch.float32, device=dev, seed=0, x0=x0,
+                 y0=y0, time_used=cast_s)
+    check = host_residuals(p_s, warm.x, warm.y)
+    emit("fishnet", instance=p_s.name, cast_s=cast_s,
+         cast_launches=cast_launches, cold_k=cold["k"], warm_k=warm.iterations,
+         warm_j=warm.kkt_passes, warm_status=warm.status_string,
+         warm_solve_time_s=warm.solve_time, **check)
+    _check_solution(f"{p_s.name} fishnet warm", warm, check)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpdlp_torch.bench.fishnet_value",
+             "--device", "cuda", "--out", f"{tmp}/fishnet.json"],
+            capture_output=True, text=True, timeout=600, cwd=root)
+        wall = time.perf_counter() - t0
+        art = {}
+        if proc.returncode == 0:
+            with open(f"{tmp}/fishnet.json") as f:
+                art = json.load(f)
+    rows = art.get("rows", [])
+    emit("fishnet_value", returncode=proc.returncode, wall_s=wall,
+         device=art.get("device"), power_limit=art.get("power_limit"),
+         rows=[[r["instance"], r["cold_status"], r["warm_status"],
+                r["cold_k"], r["warm_k"], r["cast_s"]] for r in rows])
+    if proc.returncode != 0 or not rows:
+        raise AssertionError(f"fishnet_value: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    bad = [r["instance"] for r in rows
+           if (r["cold_status"], r["warm_status"]) != ("Solved", "Solved")]
+    if bad:
+        raise AssertionError(f"fishnet_value: not Solved cold and warm: {bad}")
+
+    files = sorted(f for f in os.listdir(INSTANCES_DIR) if f.endswith(".mps"))
+    for extra, tag in ((["--fishnet"], "cli_fishnet"),
+                       (["--batch_solve"], "cli_batch")):
+        _cli_sweep([*extra, "--matrix_format", "dense"], oracle, files, tag)
 
 
 def _kernel_entry(name, source, replaces, launches, rows, head):
@@ -1818,12 +2389,20 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
     emit("sparse_instance", instance=p_1m.name, shape=list(p_1m.shape),
          nnz=int(p_1m.K.nnz), seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    fleets = fleet_instances(p_l)
+    emit("fleet_instances", seconds=time.perf_counter() - t0,
+         **{k: len(v) if isinstance(v, list) else v.name
+            for k, v in fleets.items()})
+
     out = {}
     out["dense_rows"] = phase("kernels", kernels_phase, dev, rates)
     out["band_rows"] = phase("band_kernels", band_kernels_phase, dev, rates,
                              p_band)
     out["csr_rows"] = phase("csr_kernels", csr_kernels_phase, dev, rates,
                             p_l, p_1m)
+    out["batch_rows"] = phase("batch_kernels", batch_kernels_phase, dev,
+                              rates, fleets)
     oracles = {"refine": highs.submit(highs_objective, p_s),
                "refine_band": highs.submit(highs_objective, p_b8)}
     out["dense_runs"], out["dense_launches"] = phase("solve", solve_phase,
@@ -1847,12 +2426,18 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
     oracle, dense_cli = phase("cli", cli_phase)
     phase("presolve", presolve_phase, oracle, dense_cli)
     out["refine_row"] = phase("refine", refine_phase, dev, "refine", p_s,
-                              oracles["refine"], "dense_matvec", REFINE_KKT)
+                              oracles["refine"], "dense_matvec", REFINE_KKT,
+                              "coarse")
     out["refine_band_row"] = phase(
         "refine_band", refine_phase, dev, "refine_band", p_b8,
-        oracles["refine_band"], "band_matvec", REFINE_BAND_KKT,
+        oracles["refine_band"], "band_matvec", REFINE_BAND_KKT, "prefix",
         start=REFINE_BAND_START, matrix_format="band")
     phase("fp64_tail", fp64_tail_phase, dev, p_s, out["refine_row"])
+    out["fleet_launches"] = phase("fleet", fleet_phase, dev, fleets)
+    del fleets
+    cold_s = next(r for r in out["dense_runs"]
+                  if r["instance"] == p_s.name and r["seed"] == 0)
+    phase("fishnet", fishnet_phase, dev, p_s, cold_s, oracle)
     emit("total", seconds=time.perf_counter() - t_start)
 
     print(json.dumps(_summary(out)), flush=True)
@@ -1905,7 +2490,40 @@ def _summary(out):
                           "kernel",
          "launches_sparse_1m": out["csr_launches_1m"],
          "shape": csr_head["shape"], "nnz": csr_head["nnz"]},
+        *_batch_entries(out["batch_rows"], out["fleet_launches"]),
     ]}
+
+
+#: Each batched kernel's summary row: the case of the fleet that is its
+#: main path (afiro-class x 10,000; the banded 8192 stack; mittelmann-l x
+#: 8), and its source and TPU kernel.
+_BATCH_HEADS = {
+    "dense_matvec": ("afiro-class shared K", "tpdlp_torch/csrc/dense_matvec.cu",
+                     "tpdlp/ops/pallas_dense.py:77"),
+    "band_matvec": ("banded-8192 stack K", "tpdlp_torch/csrc/band_matvec.cu",
+                    "tpdlp/ops/band.py:160"),
+    "csr_matvec": ("mittelmann-l shared K", "tpdlp_torch/csrc/csr_matvec.cu",
+                   "tpdlp/ops/sparse.py:65"),
+}
+
+
+def _batch_entries(rows, launches):
+    """The summary entries of the three kernels' batch axis: launches in
+    their fleets, the head case's times and bound, the largest fp32 error
+    over every batched case of the kernel."""
+    out = []
+    for kernel, (case, source, replaces) in _BATCH_HEADS.items():
+        name = kernel + "_batch"
+        mine = [r for r in rows if r["kernel"] == name]
+        head = next(r for r in mine if r["case"] == case
+                    and r["dtype"] == "float32")
+        out.append({
+            **_kernel_entry(name, source, replaces, launches[kernel], mine,
+                            head),
+            "case": case, "batch": head["batch"], "shape": head["shape"],
+            "single_launches_ms": head["single_launches_ms"],
+        })
+    return out
 
 
 if __name__ == "__main__":

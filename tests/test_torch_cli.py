@@ -2,9 +2,10 @@
 subprocess on the CPU, beside the JAX CLI on the same folder (the JAX
 package's tests/test_cli.py flow): the CSV schema without pandas, the
 JAX CLI's status, k and j per file under fixed steps, the "Failed to load"
-row, --presolve and the escalation of a tolerance below escalation_tol
-against the JAX CLI, and every flag of an unported option refused before
-the sweep with its ROADMAP.md item."""
+row, --presolve, --fishnet, --batch_solve and the escalation of a
+tolerance below escalation_tol against the JAX CLI, and the flag of the
+unported option (--mesh) refused before the sweep with its ROADMAP.md
+item."""
 
 import csv
 import os
@@ -103,15 +104,25 @@ def test_cli_single_file_and_support_sparse(mps_folder, tmp_path):
 ])
 def test_unported_flags_exit_naming_their_item(mps_folder, tmp_path, flags,
                                                item):
-    """A flag of a ROADMAP.md item not ported yet exits before the sweep
-    naming its item.  --presolve (item 18, ported) runs: the JAX CLI's
-    status, k, n and j per file under fixed steps, objectives to 1e-5."""
+    """A flag of a ROADMAP.md item not ported yet (--mesh, item 21) exits
+    before the sweep naming its item.  The flags of ported items run
+    against the JAX CLI on the same folder, rows for the same files and
+    the broken file's "Failed to load" row, objectives to 1e-5: --presolve
+    (item 18) with the JAX CLI's status, k, n and j per file under fixed
+    steps; --fishnet (19) and --batch_solve (20), whose random draws (the
+    fishnet's population, a distinct-K fleet's power-iteration starts)
+    are the port's own, with the JAX CLI's status, solved to 1e-8 so that
+    both objectives sit well inside 1e-5."""
     out = tmp_path / "out"
+    run_flags = [*flags]
+    if item != 21:
+        run_flags += FIXED_FLAGS
+    if item in (19, 20):
+        run_flags += ["--tolerance", "1e-8"]
     r = _run("tpdlp_torch.cli.main",
-             ["--instance_path", str(mps_folder), *flags,
-              *(FIXED_FLAGS if item == 18 else []),
+             ["--instance_path", str(mps_folder), *run_flags,
               "--output_path", str(out)], str(tmp_path))
-    if item != 18:
+    if item == 21:
         assert r.returncode != 0
         assert f"item {item})" in r.stderr
         assert not out.exists()
@@ -119,16 +130,22 @@ def test_unported_flags_exit_naming_their_item(mps_folder, tmp_path, flags,
     assert r.returncode == 0, r.stderr[-2000:]
     out_j = tmp_path / "jax"
     rj = _run("tpdlp.cli.main",
-              ["--instance_path", str(mps_folder), *flags, *FIXED_FLAGS,
+              ["--instance_path", str(mps_folder), *run_flags,
                "--output_path", str(out_j)], str(tmp_path))
     assert rj.returncode == 0, rj.stderr[-2000:]
     _, rows_t = _read(out)
     _, rows_j = _read(out_j)
+    assert set(rows_t) == set(rows_j) == {"inst0.mps", "inst1.mps",
+                                          "broken.mps"}
+    assert rows_t["broken.mps"]["Status"].startswith("Failed to load")
     for name in ("inst0.mps", "inst1.mps"):
         a, b = rows_t[name], rows_j[name]
         assert a["Status"] == b["Status"] == "Solved"
-        for key in ("Iterations (k)", "Restarts (n)", "KKT Passes (j)"):
-            assert a[key] == b[key], (name, key)
+        if item == 18:
+            for key in ("Iterations (k)", "Restarts (n)", "KKT Passes (j)"):
+                assert a[key] == b[key], (name, key)
+        if item == 20:
+            assert a["Time (s)"].endswith("(batch-amortised)")
         assert float(a["Objective"]) == pytest.approx(
             float(b["Objective"]), abs=1e-5)
 

@@ -440,7 +440,7 @@ def test_auto_picks_one_layout_on_banded_100k(card):
 
     p = tpdlp_torch.generate_banded_lp(n=100_000, m_ineq=75_000,
                                        m_eq=25_000, bandwidth=105, seed=0)
-    labels = []
+    labels, seen = [], []
     for _ in range(3):
         timings = {}
         op, label = choose_operator(p.K, torch.float32, device=card,
@@ -448,8 +448,9 @@ def test_auto_picks_one_layout_on_banded_100k(card):
         assert {"band", "sparse"} <= set(timings)
         assert label == min(timings, key=timings.get)
         labels.append(label)
+        seen.append(timings)
         del op
-    assert len(set(labels)) == 1, labels
+    assert len(set(labels)) == 1, (labels, seen)
 
 
 def test_captured_autotune_chain_launches_equal_the_formula(card):
@@ -508,3 +509,165 @@ def test_fp64_tail_on_card_runs_both_dtypes(card):
     assert [s["dtype"] for s in stages] == ["float32", "float64"]
     assert all(s["launches"]["dense_matvec"] > 0 for s in stages)
     assert r.status == tpdlp_torch.Status.SOLVED, r.status_string
+
+
+# ---------------------------------------------------------------------------
+# The kernels' batch axis (tpdlp_torch/batch): one launch for a fleet, each
+# element bit for bit a single launch on it.
+# ---------------------------------------------------------------------------
+
+
+def _per_element(fn_batch, fn_single, X, name, twin):
+    """One batched launch: one count, bit-identical repeats, the twin's
+    values within tolerance, and element b equal to a single launch on b."""
+    before = _kernels.launches[name + "_batch"]
+    Y = fn_batch(X)
+    assert _kernels.launches[name + "_batch"] == before + 1
+    assert torch.equal(Y, fn_batch(X))
+    assert bool(torch.isfinite(Y).all())
+    ref = twin(X)
+    rel = float(((Y - ref).abs() / (1 + ref.abs())).max())
+    assert rel < _tol(X.shape[1], X.dtype), rel
+    # A single launch takes a 16-byte-aligned x: each element's own copy.
+    singles = torch.stack([fn_single(X[b].clone())
+                           for b in range(X.shape[0])])
+    assert torch.equal(Y, singles)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_batch_kernel_equals_single_launches_on_card(card, dtype):
+    """A shared K at B = 1, a ragged B = 37 and the 10,000-element afiro
+    batch; a stack of distinct K with the padded row stride; K' too."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+    (p,) = build_suite(("small",), names=("afiro-class",))
+    afiro = ExactDenseOp.build(torch.as_tensor(p.K.toarray(), dtype=dtype,
+                                               device=card))
+    for op, B in ((afiro, 1), (afiro, 37), (afiro, 10_000)):
+        for M in (op.mat, op.bwd[:, : op.m]):
+            X = torch.randn((B, M.shape[1]), generator=gen, dtype=dtype,
+                            device=card)
+            _per_element(lambda X: _kernels.dense_matvec_batch(M, X),
+                         lambda x: dense_matvec(M, x), X, "dense_matvec",
+                         lambda X: _kernels.dense_matvec_batch_plain(M, X))
+    for B, m, n in ((1, 444, 757), (5, 444, 757), (3, 2001, 5003)):
+        S = pad_rows(torch.randn((B * m, n), generator=gen, dtype=dtype,
+                                 device=card)).view(B, m, -1)[:, :, :n]
+        X = torch.randn((B, n), generator=gen, dtype=dtype, device=card)
+        before = _kernels.launches["dense_matvec_batch"]
+        Y = _kernels.dense_matvec_batch(S, X)
+        assert _kernels.launches["dense_matvec_batch"] == before + 1
+        assert torch.equal(Y, torch.stack([dense_matvec(S[b], X[b].clone())
+                                           for b in range(B)]))
+        ref = _kernels.dense_matvec_batch_plain(S, X)
+        assert float(((Y - ref).abs() / (1 + ref.abs())).max()) < _tol(
+            n, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_band_batch_kernel_equals_single_launches_on_card(card, dtype):
+    """A shared band K at B = 1 and 7, and a stack whose windows (WB = 256)
+    run past its n = 100 columns (n_pad = 128 < WB): each element's window
+    past n must read zeros, not the next element's x, and the last
+    element's, not the NaN behind the buffer."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(12)
+    p = tpdlp_torch.generate_banded_lp(n=2048, m_ineq=1024, m_eq=512,
+                                       bandwidth=33, seed=1)
+    op = BandOp.from_scipy(p.K, dtype, device=card)
+    for mat in (op.fwd, op.bwd):
+        for B in (1, 7):
+            X = torch.randn((B, mat.n), generator=gen, dtype=dtype,
+                            device=card)
+            _per_element(
+                lambda X: _kernels.band_matvec_batch(
+                    mat.slabs, mat.starts, X, mat.m, mat.n),
+                lambda x: band_matvec(mat.slabs, mat.starts, x, mat.m,
+                                      mat.n),
+                X, "band_matvec",
+                lambda X: _kernels.band_matvec_batch_plain(
+                    mat.slabs, mat.starts, X, mat.m, mat.n))
+    B, m, n, WB = 6, 300, 100, 256
+    slabs = torch.randn((B, 8, 128, WB), generator=gen, dtype=dtype,
+                        device=card)
+    starts = torch.zeros((B, 8), dtype=torch.int32, device=card)
+    buf = torch.full((B * n + 2 * WB,), float("nan"), dtype=dtype,
+                     device=card)
+    buf[: B * n] = torch.randn((B * n,), generator=gen, dtype=dtype,
+                               device=card)
+    X = buf[: B * n].view(B, n)
+    Y = _kernels.band_matvec_batch(slabs, starts, X, m, n)
+    assert bool(torch.isfinite(Y).all())
+    ref = _kernels.band_matvec_batch_plain(slabs, starts, X, m, n)
+    assert float(((Y - ref).abs() / (1 + ref.abs())).max()) < _tol(WB, dtype)
+    assert torch.equal(Y, torch.stack([
+        band_matvec(slabs[b], starts[b], X[b], m, n) for b in range(B)]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batch_kernels_take_an_offset_view_of_x_on_card(card, dtype):
+    """X a view that starts one element into its buffer, its rows a
+    multiple of ROW_ALIGN long (so no padding copy is made): K1's vector
+    loads and K2's bulk copies of x still see 16-byte-aligned rows, and
+    the result is that of an aligned copy, bit for bit."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(14)
+    p = tpdlp_torch.generate_banded_lp(n=2048, m_ineq=1024, m_eq=512,
+                                       bandwidth=33, seed=1)
+    band = BandOp.from_scipy(p.K, dtype, device=card).fwd
+    B, m, n = 3, 200, 256
+    S = pad_rows(torch.randn((B * m, n), generator=gen, dtype=dtype,
+                             device=card)).view(B, m, -1)[:, :, :n]
+    for cols, fn in (
+            (n, lambda X: _kernels.dense_matvec_batch(S, X)),
+            (band.n, lambda X: _kernels.band_matvec_batch(
+                band.slabs, band.starts, X, band.m, band.n))):
+        assert cols % _kernels.ROW_ALIGN == 0
+        buf = torch.randn((B * cols + 1,), generator=gen, dtype=dtype,
+                          device=card)
+        X = buf[1:].view(B, cols)
+        assert X.data_ptr() % 16
+        Y = fn(X)
+        torch.cuda.synchronize()
+        assert torch.equal(Y, fn(X.clone()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_batch_kernel_equals_single_launches_on_card(card, dtype):
+    """A shared CSR K (empty rows included) at B = 1, 33 and 10,000."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(13)
+    for m, n, density, B in ((300, 200, 0.05, 1), (300, 200, 0.05, 33),
+                             (27, 51, 0.3, 10_000), (5000, 40, 0.02, 3)):
+        K = _random_sparse(m, n, density, seed=m)
+        crow = torch.as_tensor(K.indptr.astype(np.int32), device=card)
+        col = torch.as_tensor(K.indices.astype(np.int32), device=card)
+        val = torch.as_tensor(K.data, dtype=dtype, device=card)
+        X = torch.randn((B, n), generator=gen, dtype=dtype, device=card)
+        _per_element(
+            lambda X: _kernels.csr_matvec_batch(crow, col, val, X),
+            lambda x: _kernels.csr_matvec(crow, col, val, x), X,
+            "csr_matvec",
+            lambda X: _kernels.csr_matvec_batch_plain(crow, col, val, X))
+
+
+def test_element_fleet_on_card_matches_single_solves(card):
+    """A shared-K fleet in fp64 with fixed steps, restart_sync="element":
+    each element's status, k, n and j are those of a single solve of the
+    same LP on the card, and the fleet's products all went through K1's
+    batch axis."""
+    from tpdlp_torch.bench.fleet import perturbed_fleet
+
+    (p,) = build_suite(("small",), names=("sc50-class",))
+    fleet = perturbed_fleet(p, 5)
+    cfg = tpdlp_torch.SolverConfig(tol=1e-6, scaling="ruiz", adaptive=False,
+                                   primal_weight_update=True)
+    _kernels.reset_launches()
+    rs = tpdlp_torch.solve_batch(fleet, cfg, dtype=torch.float64)
+    assert _kernels.launches["dense_matvec_batch"] > 0
+    for q, r in zip(fleet, rs):
+        s = tpdlp_torch.solve(q, cfg, dtype=torch.float64)
+        assert r.status == s.status == tpdlp_torch.Status.SOLVED
+        assert (r.iterations, r.restarts, r.kkt_passes) == (
+            s.iterations, s.restarts, s.kkt_passes)
+        assert abs(r.objective - s.objective) <= 1e-9 * (1 + abs(s.objective))

@@ -9,6 +9,9 @@ products run hand-written CUDA kernels, built with nvcc at first use:
 csrc/dense_matvec.cu for matrix_format="dense", csrc/band_matvec.cu for
 matrix_format="band", csrc/csr_matvec.cu for matrix_format="sparse";
 matrix_format="auto" times the candidate layouts and keeps the fastest.
+`solve_batch` solves a fleet of LPs together, every K product of the fleet
+one launch of a kernel's batch axis; `tpdlp_torch.fishnet.spectral_cast` is
+the fishnet warm start.
 Front ends: `python -m tpdlp_torch.cli.main` and `tpdlp_torch.compat`.
 Importing the package changes no global torch state.
 """
@@ -24,6 +27,7 @@ from tpdlp_torch.io.mps import mps_to_standard_form, read_mps
 from tpdlp_torch.io.writer import write_mps
 from tpdlp_torch.problem import LPProblem
 from tpdlp_torch.solver.solve import SolveResult, solve
+from tpdlp_torch.batch.vmapped import solve_batch
 
 __all__ = [
     "SolverConfig",
@@ -31,6 +35,7 @@ __all__ = [
     "LPProblem",
     "solve",
     "SolveResult",
+    "solve_batch",
     "read_mps",
     "mps_to_standard_form",
     "write_mps",

@@ -15,9 +15,12 @@ layout autotune (matrix_format="auto"), and `--matrix_format` forces a
 layout.  `--presolve python|cpp` reduces each LP first and maps the
 solution back.  A tolerance below `escalation_tol` with no --dtype on
 CUDA (fp32) escalates as in the JAX CLI: iterative refinement by default.
-Flags of options the port does not run yet exit non-zero before the sweep
-and name their ROADMAP.md item: --fishnet (19), --batch_solve (20) and
---mesh (21).
+`--fishnet` warm-starts each solve from the fishnet search
+(tpdlp_torch/fishnet.py) on the scaled problem, through the layout the
+solve uses; `--batch_solve` solves a folder of several files as one fleet
+(`solve_batch`, restart_sync="global"), each row's time the batch's wall
+over its size.  The flag of an option the port does not run yet, --mesh,
+exits non-zero before the sweep and names its ROADMAP.md item (21).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def parse_args(argv=None):
     p.add_argument("--max_kkt", type=int, default=100_000)
     p.add_argument("--time_limit", type=int, default=3600)
     p.add_argument("--fishnet", action="store_true",
-                   help="Fishnet multi-point warm start (not ported yet)")
+                   help="Fishnet multi-point warm start")
     p.add_argument("--scaling", type=str, default=None,
                    choices=["none", "ruiz", "ruiz+pc"],
                    help="Override scaling method (--precondition => ruiz)")
@@ -79,7 +82,8 @@ def parse_args(argv=None):
                    help="iteration scheme: restarted PDHG, or "
                         "Halpern-anchored reflected PDHG (fixed steps only)")
     p.add_argument("--batch_solve", action="store_true",
-                   help="solve the folder as one batch (not ported yet)")
+                   help="solve the whole folder as one fleet (same-device "
+                        "batch; ragged shapes padded)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--abs_gap_termination", action="store_true",
                    help="certify |gap| <= tol(1+|p|+|d|); the default "
@@ -90,11 +94,7 @@ def parse_args(argv=None):
 def _unported(args):
     """The first flag naming an option the port does not run yet, as a
     message with its ROADMAP.md item; None when there is none."""
-    flags = [
-        (args.fishnet, "--fishnet", 19),
-        (args.batch_solve, "--batch_solve", 20),
-        (args.mesh, "--mesh", 21),
-    ]
+    flags = [(args.mesh, "--mesh", 21)]
     for on, what, item in flags:
         if on:
             return (f"{what} is not ported to tpdlp_torch yet (ROADMAP.md "
@@ -123,13 +123,48 @@ def write_csv(rows, path) -> None:
         w.writerows(rows)
 
 
+def _batch_rows(loaded, cfg, dtype, dev, seed, matrix_format):
+    """The CSV rows of one fleet solve of the loaded files (the JAX
+    CLI's --batch_solve): restart_sync="global", each row's time the batch
+    wall over its size; a failed batch fails every row."""
+    from tpdlp_torch.batch import solve_batch
+
+    print(f"\nBatch-solving {len(loaded)} instances (one fleet)...")
+    rows = []
+    try:
+        batch = solve_batch([p for _, p in loaded], cfg, dtype=dtype,
+                            device=dev, seed=seed, restart_sync="global",
+                            matrix_format=matrix_format)
+    except Exception as e:  # reported in every row of the batch
+        print(f"Batch solve failed: {e}")
+        return [_failed_row(name, f"Batch failed: {e}")
+                for name, _ in loaded]
+    for (name, _), r in zip(loaded, batch):
+        row = r.csv_row(name)
+        row["Time (s)"] = (f"{r.solve_time / len(batch):.4f} "
+                           "(batch-amortised)")
+        rows.append(row)
+        print(f"{name}: {r.status_string}")
+    return rows
+
+
 def main(argv=None):
     args = parse_args(argv)
+    if args.fishnet and args.presolve != "off":
+        raise SystemExit(
+            "--fishnet cannot be combined with --presolve: the fishnet "
+            "warm start lives in the original variable space but the "
+            "solve would run on the presolve-reduced problem"
+        )
+
+    import time
 
     import torch
 
     from tpdlp_torch import SolverConfig, read_mps, solve
     from tpdlp_torch.device import resolve_device
+    from tpdlp_torch.fishnet import fishnet_start
+    from tpdlp_torch.solver.solve import default_dtype
 
     scaling = args.scaling
     if scaling is None:
@@ -179,6 +214,7 @@ def main(argv=None):
         ("Primal weight update", args.primal_weight_update),
         ("Adaptive stepsize", args.adaptive_stepsize),
         ("Infeasibility detection", args.infeasibility_detect),
+        ("Fishnet", args.fishnet),
         ("Matrix format", matrix_format),
     ):
         print(f"{k}: {v}")
@@ -194,6 +230,28 @@ def main(argv=None):
         )
 
     results = []
+    if args.batch_solve and (args.fishnet or args.presolve != "off"):
+        print("--batch_solve does not compose with --fishnet/--presolve/"
+              "--mesh; falling back to the sequential sweep.")
+        args.batch_solve = False
+    if args.batch_solve and len(mps_files) > 1:
+        # Fleet mode: per-file load failures are reported per row; the
+        # batch solves the rest.
+        loaded = []
+        for path in mps_files:
+            fname = os.path.basename(path)
+            try:
+                loaded.append(
+                    (fname, read_mps(path,
+                                     compat_fr_zero=args.compat_fr_zero)))
+            except Exception as e:  # reported in the file's row
+                print(f"Failed to load MPS file: {path}. Error: {e}")
+                results.append(_failed_row(fname, f"Failed to load: {e}"))
+        if loaded:
+            results += _batch_rows(loaded, cfg, dtype, dev, args.seed,
+                                   args.matrix_format or "dense")
+        mps_files = []
+
     for path in mps_files:
         fname = os.path.basename(path)
         print(f"\nProcessing {path}...")
@@ -204,8 +262,20 @@ def main(argv=None):
             results.append(_failed_row(fname, f"Failed to load: {e}"))
             continue
         try:
+            time_used = 0.0
+            x0 = y0 = None
+            if args.fishnet:
+                t0 = time.perf_counter()
+                x0, y0 = fishnet_start(
+                    problem, dtype or default_dtype(dev), dev,
+                    matrix_format, scaling, args.seed)
+                time_used = time.perf_counter() - t0
+                if args.verbose:
+                    print(f"Fishnet completed in {time_used:.4f}s")
             result = solve(problem, cfg, dtype=dtype, device=dev,
-                           seed=args.seed, matrix_format=matrix_format,
+                           x0=x0, y0=y0, seed=args.seed,
+                           time_used=time_used,
+                           matrix_format=matrix_format,
                            presolve=args.presolve)
             print(f"Solver uses {result.solve_time:.4f} seconds.")
             print(f"Status: {result.status_string}")

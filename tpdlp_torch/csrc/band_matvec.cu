@@ -44,11 +44,24 @@
 //   never on the grid or the warp that took it, so repeats are
 //   bit-identical on every card.  No atomics, no tensor cores, no TF32.
 //
+// The batch axis (tpdlp_torch/batch: a fleet of LPs solved together, where
+// the JAX package vmaps BandOp.mv/rmv and pallas_call's batching rule runs
+// K2 over a batch grid axis).  One launch computes Y[b] = M_b X[b] for
+// b < batch: element b's slabs are slabs + b * stride_s, its starts
+// starts + b * stride_g (both 0 for one band K shared by the fleet), its x
+// x + b * ldx and its y y + b * ldy.  The persistent loop walks (element,
+// unit) pairs, u = b * units + unit, so a row's sum is exactly the single
+// launch's.  Every element has n columns: a window that runs past n reads
+// zeros, never the next element's x, which matters for a stacked fleet
+// whose windows were widened past its padded column count.  batch = 1 with
+// zero strides is the single-vector launch.
+//
 // Layout contract (checked by the Python wrapper, tpdlp_torch/ops/_kernels.py):
 // slabs is a contiguous, 16-byte-aligned (ngroups, R, WB) array with WB a
 // multiple of 4 elements and at most kMaxRowBytes per row, so every slab row
 // starts on a 16-byte boundary; ngroups * R >= m; starts is int32
-// (ngroups,); x is 16-byte aligned.  A start that is not a multiple of 16
+// (ngroups,); x is 16-byte aligned (in a batch, ldx, stride_s and the
+// slabs' row width keep every element so).  A start that is not a multiple of 16
 // bytes takes its whole window by plain loads.  Rows >= m are never read
 // and y has exactly m entries.  The kernel allocates nothing and does not
 // synchronise; it runs on the caller's stream.
@@ -101,7 +114,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 band_matvec_kernel(const T* __restrict__ slabs,
                    const int32_t* __restrict__ starts,
                    const T* __restrict__ x, T* __restrict__ y, int m, int n,
-                   int R, int WB) {
+                   int R, int WB, int batch, int64_t stride_s,
+                   int64_t stride_g, int64_t ldx, int64_t ldy) {
   using V = typename Vec<T>::type;
   constexpr int W = Vec<T>::width;
   // Dynamic shared memory: the ring, then kWindows windows of WB elements.
@@ -130,16 +144,20 @@ band_matvec_kernel(const T* __restrict__ slabs,
 
   const int row_bytes = WB * static_cast<int>(sizeof(T));
   const Units units(m, R, row_bytes);
+  const int64_t work = static_cast<int64_t>(units.count) * batch;
 
   if (warp == kSlabWarp) {  // one thread streams the units' slab rows
     if (lane != 0) return;
     int i = 0;
-    for (int u = blockIdx.x; u < units.count; u += gridDim.x, ++i) {
+    for (int64_t w = blockIdx.x; w < work; w += gridDim.x, ++i) {
+      const int64_t b = batch == 1 ? 0 : w / units.count;
+      const int u = static_cast<int>(w - b * units.count);
       const int s = i % kStages;
       mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
       const uint32_t bytes = units.rows(u, R, m) * row_bytes;
       mbar_arrive_expect_tx(&full[s], bytes);
-      bulk_copy(ring + s * kStageBytes, slabs + units.row0(u, R) * WB, bytes,
+      bulk_copy(ring + s * kStageBytes,
+                slabs + b * stride_s + units.row0(u, R) * WB, bytes,
                 &full[s]);
     }
     return;
@@ -147,25 +165,28 @@ band_matvec_kernel(const T* __restrict__ slabs,
 
   if (warp == kWindowWarp) {  // fetches each unit's window ahead
     int i = 0;
-    for (int u = blockIdx.x; u < units.count; u += gridDim.x, ++i) {
+    for (int64_t w = blockIdx.x; w < work; w += gridDim.x, ++i) {
+      const int64_t e = batch == 1 ? 0 : w / units.count;  // the element
+      const int u = static_cast<int>(w - e * units.count);
+      const T* xe = x + e * ldx;
       const int b = i % kWindows;
       T* win = windows + b * WB;
       if (lane == 0) mbar_wait(&win_empty[b], ((i / kWindows) & 1) ^ 1);
       __syncwarp();
-      const int start = __ldg(starts + units.group(u));
+      const int start = __ldg(starts + e * stride_g + units.group(u));
       const int live = max(0, min(WB, n - start));  // window columns < n
       // The bulk part: whole 16-byte pieces, from a 16-byte-aligned start.
       const int bulk = start % (16 / static_cast<int>(sizeof(T))) == 0
                            ? live & ~(16 / static_cast<int>(sizeof(T)) - 1)
                            : 0;
       for (int w = bulk + lane; w < WB; w += kWarp) {
-        win[w] = w < live ? __ldg(x + start + w) : T(0);
+        win[w] = w < live ? __ldg(xe + start + w) : T(0);
       }
       fence_proxy_async();  // before a later bulk copy into these bytes
       __syncwarp();
       if (lane == 0 && bulk > 0) {
         mbar_arrive_expect_tx(&win_full[b], bulk * sizeof(T));
-        bulk_copy(win, x + start, bulk * sizeof(T), &win_full[b]);
+        bulk_copy(win, xe + start, bulk * sizeof(T), &win_full[b]);
       } else {
         mbar_arrive(&win_full[b]);
       }
@@ -178,7 +199,10 @@ band_matvec_kernel(const T* __restrict__ slabs,
   // butterfly.
   const int nvec = WB / W;
   int i = 0;
-  for (int u = blockIdx.x; u < units.count; u += gridDim.x, ++i) {
+  for (int64_t w = blockIdx.x; w < work; w += gridDim.x, ++i) {
+    const int64_t e = batch == 1 ? 0 : w / units.count;  // the element
+    const int u = static_cast<int>(w - e * units.count);
+    T* ye = y + e * ldy;
     const int s = i % kStages;
     const int b = i % kWindows;
     const V* wv = reinterpret_cast<const V*>(windows + b * WB);
@@ -202,8 +226,8 @@ band_matvec_kernel(const T* __restrict__ slabs,
       a0 = warp_sum(a0);
       a1 = warp_sum(a1);
       if (lane == 0) {
-        y[row0 + j] = a0;
-        if (two) y[row0 + j2] = a1;
+        ye[row0 + j] = a0;
+        if (two) ye[row0 + j2] = a1;
       }
     }
     __syncwarp();
@@ -216,8 +240,9 @@ band_matvec_kernel(const T* __restrict__ slabs,
 
 template <typename T>
 int launch(const T* slabs, const int32_t* starts, const T* x, T* y, int m,
-           int n, int R, int WB, void* stream) {
-  if (m <= 0) return 0;
+           int n, int R, int WB, int batch, int64_t stride_s,
+           int64_t stride_g, int64_t ldx, int64_t ldy, void* stream) {
+  if (m <= 0 || batch <= 0) return 0;
   const int row_bytes = WB * static_cast<int>(sizeof(T));
   if (WB <= 0 || row_bytes > kMaxRowBytes || R <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -230,11 +255,12 @@ int launch(const T* slabs, const int32_t* starts, const T* x, T* y, int m,
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const Units units(m, R, row_bytes);
-  const unsigned blocks =
-      static_cast<unsigned>(std::min(units.count, kBlocksPerSm * sms));
+  const int64_t work = static_cast<int64_t>(units.count) * batch;
+  const unsigned blocks = static_cast<unsigned>(
+      std::min<int64_t>(work, kBlocksPerSm * sms));
   band_matvec_kernel<T><<<blocks, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      slabs, starts, x, y, m, n, R, WB);
+      slabs, starts, x, y, m, n, R, WB, batch, stride_s, stride_g, ldx, ldy);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,13 +272,34 @@ extern "C" {
 int tpdlp_band_matvec_f32(const float* slabs, const int32_t* starts,
                           const float* x, float* y, int m, int n, int R,
                           int WB, void* stream) {
-  return launch<float>(slabs, starts, x, y, m, n, R, WB, stream);
+  return launch<float>(slabs, starts, x, y, m, n, R, WB, 1, 0, 0, 0, 0,
+                       stream);
 }
 
 int tpdlp_band_matvec_f64(const double* slabs, const int32_t* starts,
                           const double* x, double* y, int m, int n, int R,
                           int WB, void* stream) {
-  return launch<double>(slabs, starts, x, y, m, n, R, WB, stream);
+  return launch<double>(slabs, starts, x, y, m, n, R, WB, 1, 0, 0, 0, 0,
+                        stream);
+}
+
+// Y[b] = M_b X[b] for b < batch in one launch (see the batch axis above).
+int tpdlp_band_matvec_batch_f32(const float* slabs, const int32_t* starts,
+                                const float* x, float* y, int m, int n,
+                                int R, int WB, int batch, int64_t stride_s,
+                                int64_t stride_g, int64_t ldx, int64_t ldy,
+                                void* stream) {
+  return launch<float>(slabs, starts, x, y, m, n, R, WB, batch, stride_s,
+                       stride_g, ldx, ldy, stream);
+}
+
+int tpdlp_band_matvec_batch_f64(const double* slabs, const int32_t* starts,
+                                const double* x, double* y, int m, int n,
+                                int R, int WB, int batch, int64_t stride_s,
+                                int64_t stride_g, int64_t ldx, int64_t ldy,
+                                void* stream) {
+  return launch<double>(slabs, starts, x, y, m, n, R, WB, batch, stride_s,
+                        stride_g, ldx, ldy, stream);
 }
 
 }  // extern "C"

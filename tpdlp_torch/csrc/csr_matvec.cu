@@ -26,6 +26,13 @@
 // and leaves the row-length imbalance of power-law matrices to a later
 // design.
 //
+// The batch axis (tpdlp_torch/batch: a fleet of LPs that share one sparse
+// K).  One launch computes Y[b] = M X[b] for b < batch, X[b] = x + b * ldx
+// and Y[b] = y + b * ldy: the groups walk (element, row) pairs, so a row's
+// sum is exactly the single launch's.  A single vector runs the kernel
+// instantiated without the batch axis (kBatched false), the launch as it
+// was before fleets.  M is read once per element (from L2 where it fits).
+//
 // Layout contract (checked by the Python wrapper, tpdlp_torch/ops/_kernels.py):
 // crow has rows + 1 int32 offsets, col and val hold crow[rows] entries, every
 // column index lies in [0, cols).  The kernel allocates nothing and does not
@@ -49,14 +56,23 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-template <typename T, int G>
+template <typename T, int G, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
     csr_matvec_kernel(const int* __restrict__ crow, const int* __restrict__ col,
                       const T* __restrict__ val, const T* __restrict__ x,
-                      T* __restrict__ y, int rows) {
+                      T* __restrict__ y, int rows, int batch, int64_t ldx,
+                      int64_t ldy) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t row = tid / G;
-  if (row >= rows) return;  // whole groups leave together
+  int64_t row = tid / G;
+  if (kBatched) {  // (element, row) pairs
+    if (row >= static_cast<int64_t>(rows) * batch) return;  // whole groups
+    const int64_t e = row / rows;
+    row -= e * rows;
+    x += e * ldx;
+    y += e * ldy;
+  } else if (row >= rows) {
+    return;  // whole groups leave together
+  }
   const int lane = threadIdx.x & (G - 1);
   // The group's lanes in its warp: the only lanes the butterfly names.
   const unsigned mask =
@@ -77,26 +93,47 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int G>
 int launch_g(const int* crow, const int* col, const T* val, const T* x, T* y,
-             int rows, cudaStream_t stream) {
-  const int64_t threads = static_cast<int64_t>(rows) * G;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  csr_matvec_kernel<T, G><<<blocks, kThreads, 0, stream>>>(crow, col, val, x,
-                                                           y, rows);
+             int rows, int batch, int64_t ldx, int64_t ldy,
+             cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(rows) * batch * G;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (batch == 1) {
+    csr_matvec_kernel<T, G, false><<<static_cast<unsigned>(blocks),
+                                     kThreads, 0, stream>>>(
+        crow, col, val, x, y, rows, 1, 0, 0);
+  } else {
+    csr_matvec_kernel<T, G, true><<<static_cast<unsigned>(blocks), kThreads,
+                                    0, stream>>>(crow, col, val, x, y, rows,
+                                                 batch, ldx, ldy);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const int* crow, const int* col, const T* val, const T* x, T* y,
-           int rows, int group, void* stream_ptr) {
-  if (rows <= 0) return 0;
+           int rows, int group, int batch, int64_t ldx, int64_t ldy,
+           void* stream_ptr) {
+  if (rows <= 0 || batch <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (group) {
-    case 2: return launch_g<T, 2>(crow, col, val, x, y, rows, stream);
-    case 4: return launch_g<T, 4>(crow, col, val, x, y, rows, stream);
-    case 8: return launch_g<T, 8>(crow, col, val, x, y, rows, stream);
-    case 16: return launch_g<T, 16>(crow, col, val, x, y, rows, stream);
-    case 32: return launch_g<T, 32>(crow, col, val, x, y, rows, stream);
+    case 2:
+      return launch_g<T, 2>(crow, col, val, x, y, rows, batch, ldx, ldy,
+                            stream);
+    case 4:
+      return launch_g<T, 4>(crow, col, val, x, y, rows, batch, ldx, ldy,
+                            stream);
+    case 8:
+      return launch_g<T, 8>(crow, col, val, x, y, rows, batch, ldx, ldy,
+                            stream);
+    case 16:
+      return launch_g<T, 16>(crow, col, val, x, y, rows, batch, ldx, ldy,
+                             stream);
+    case 32:
+      return launch_g<T, 32>(crow, col, val, x, y, rows, batch, ldx, ldy,
+                             stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -110,13 +147,30 @@ extern "C" {
 int tpdlp_csr_matvec_f32(const int* crow, const int* col, const float* val,
                          const float* x, float* y, int rows, int group,
                          void* stream) {
-  return launch<float>(crow, col, val, x, y, rows, group, stream);
+  return launch<float>(crow, col, val, x, y, rows, group, 1, 0, 0, stream);
 }
 
 int tpdlp_csr_matvec_f64(const int* crow, const int* col, const double* val,
                          const double* x, double* y, int rows, int group,
                          void* stream) {
-  return launch<double>(crow, col, val, x, y, rows, group, stream);
+  return launch<double>(crow, col, val, x, y, rows, group, 1, 0, 0, stream);
+}
+
+// Y[b] = M X[b] for b < batch in one launch (see the batch axis above).
+int tpdlp_csr_matvec_batch_f32(const int* crow, const int* col,
+                               const float* val, const float* x, float* y,
+                               int rows, int group, int batch, int64_t ldx,
+                               int64_t ldy, void* stream) {
+  return launch<float>(crow, col, val, x, y, rows, group, batch, ldx, ldy,
+                       stream);
+}
+
+int tpdlp_csr_matvec_batch_f64(const int* crow, const int* col,
+                               const double* val, const double* x, double* y,
+                               int rows, int group, int batch, int64_t ldx,
+                               int64_t ldy, void* stream) {
+  return launch<double>(crow, col, val, x, y, rows, group, batch, ldx, ldy,
+                        stream);
 }
 
 }  // extern "C"

@@ -35,14 +35,27 @@
 //   __shfl_xor_sync butterfly ends the row.  That order depends only on
 //   cols, never on the grid, the tile or the block order: repeats are
 //   bit-identical on every card.  No atomics, no tensor cores, no TF32.
+//
+// The batch axis (tpdlp_torch/batch: a fleet of LPs solved together, where
+// the JAX package vmaps ExactDenseOp.mv/rmv and pallas_call's batching rule
+// runs K1 over a batch grid axis).  One launch computes Y[b] = M_b X[b] for
+// b < batch, with M_b = M + b * stride_m (0: one K shared by the fleet;
+// rows * ld: a stack of distinct K), X[b] = x + b * ldx and
+// Y[b] = y + b * ldy.  The persistent loop walks (element, tile) pairs,
+// t = b * tiles + tile, so a row's reduction is exactly the single launch's
+// and element b's bits never depend on the batch size, on b or on the grid.
+// A shared K is re-read per element (from L2 where it fits); reading it once
+// for a tile of right-hand sides is later work.  batch = 1 with zero
+// strides is the single-vector launch.
 
 // Layout contract (checked by the Python wrapper, tpdlp_torch/ops/_kernels.py):
 // M is row-major with a row stride `ld` that is a multiple of 4 elements and
 // a 16-byte-aligned base, so every row starts on a 16-byte boundary; x is
 // 16-byte aligned.  A row chunk is copied up to cols rounded up to 4
 // elements (at most `ld`), but no value at or past `cols` is ever used, and
-// x is never read at or past `cols`.  The kernel allocates nothing and does
-// not synchronise; it runs on the caller's stream.
+// x is never read at or past `cols`.  In a batch, stride_m, ldx and ldy keep
+// every M_b and X[b] 16-byte aligned (multiples of 4 elements).  The kernel
+// allocates nothing and does not synchronise; it runs on the caller's stream.
 
 #include "pipeline.cuh"
 
@@ -78,7 +91,8 @@ struct Tiles {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
-                    T* __restrict__ y, int rows, int cols, int64_t ld) {
+                    T* __restrict__ y, int rows, int cols, int64_t ld,
+                    int batch, int64_t stride_m, int64_t ldx, int64_t ldy) {
   using V = typename Vec<T>::type;
   constexpr int W = Vec<T>::width;
   extern __shared__ __align__(128) unsigned char ring[];
@@ -100,17 +114,20 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
   const int row_bytes = tl.row_bytes, chunks = tl.chunks, stride = tl.stride;
   const int per_warp = tl.per_warp, tile_rows = tl.tile_rows;
   const int tiles = tl.count;
+  const int64_t work = static_cast<int64_t>(tiles) * batch;  // (b, tile)
 
   if (warp == kConsumerWarps) {  // the producer
     if (lane != 0) return;
     const int64_t ld_bytes = ld * static_cast<int64_t>(sizeof(T));
     const bool packed = chunks == 1 && ld_bytes == row_bytes;
     uint32_t k = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int r0 = t * tile_rows;
+    for (int64_t w = blockIdx.x; w < work; w += gridDim.x) {
+      const int64_t b = batch == 1 ? 0 : w / tiles;
+      const int r0 = static_cast<int>(w - b * tiles) * tile_rows;
       const int nr = min(tile_rows, rows - r0);
       const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(M) + r0 * ld_bytes;
+          reinterpret_cast<const unsigned char*>(M + b * stride_m) +
+          r0 * ld_bytes;
       for (int c = 0; c < chunks; ++c, ++k) {
         const int s = k % kStages;
         mbar_wait(&empty[s], ((k / kStages) & 1) ^ 1);
@@ -134,13 +151,16 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
   // The consumers.  Lane L sums the row's 16-byte vectors L, L + 32, ...
   // in order, then (if cols % W) the last partial vector's elements; a
   // fixed butterfly ends the row.  That order depends only on cols.
-  const V* xv = reinterpret_cast<const V*>(x);
   const int nvec = cols / W;        // whole vectors of a row
   const int tail = cols - nvec * W;  // elements of the partial vector
   uint32_t k = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int r0 = t * tile_rows;
+  for (int64_t w = blockIdx.x; w < work; w += gridDim.x) {
+    const int64_t b = batch == 1 ? 0 : w / tiles;
+    const int r0 = static_cast<int>(w - b * tiles) * tile_rows;
     const int nr = min(tile_rows, rows - r0);
+    const T* xb = x + b * ldx;
+    const V* xv = reinterpret_cast<const V*>(xb);
+    T* yb = y + b * ldy;
     T acc = T(0);  // the running sum of a row that spans chunks
     for (int c = 0; c < chunks; ++c, ++k) {
       const int s = k % kStages;
@@ -168,12 +188,12 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
         if (tail_here) {
           const T* se = reinterpret_cast<const T*>(sr + (nvec - v0));
           for (int e = 0; e < tail; ++e) {
-            a = fma(se[e], __ldg(x + nvec * W + e), a);
+            a = fma(se[e], __ldg(xb + nvec * W + e), a);
           }
         }
         if (chunks == 1) {
           a = warp_sum(a);
-          if (lane == 0) y[r0 + j] = a;
+          if (lane == 0) yb[r0 + j] = a;
         } else {
           acc = a;
         }
@@ -183,15 +203,16 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
     }
     if (chunks != 1 && warp < nr) {  // a row that spans chunks (or cols 0)
       acc = warp_sum(acc);
-      if (lane == 0) y[r0 + warp] = acc;
+      if (lane == 0) yb[r0 + warp] = acc;
     }
   }
 }
 
 template <typename T>
 int launch(const T* M, const T* x, T* y, int rows, int cols, int64_t ld,
+           int batch, int64_t stride_m, int64_t ldx, int64_t ldy,
            void* stream) {
-  if (rows <= 0) return 0;
+  if (rows <= 0 || batch <= 0) return 0;
   static int smem_done[kMaxDevices] = {};
   const cudaError_t err =
       allow_dynamic_smem(dense_matvec_kernel<T>, kRingBytes, smem_done);
@@ -199,10 +220,12 @@ int launch(const T* M, const T* x, T* y, int rows, int cols, int64_t ld,
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const Tiles tiles(rows, cols, static_cast<int>(sizeof(T)));
-  const unsigned blocks = static_cast<unsigned>(std::min(tiles.count, sms));
+  const int64_t work = static_cast<int64_t>(tiles.count) * batch;
+  const unsigned blocks =
+      static_cast<unsigned>(std::min<int64_t>(work, sms));
   dense_matvec_kernel<T><<<blocks, kThreads, kRingBytes,
                            static_cast<cudaStream_t>(stream)>>>(
-      M, x, y, rows, cols, ld);
+      M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -213,12 +236,29 @@ extern "C" {
 // Each returns cudaGetLastError() right after the launch (0 = launched).
 int tpdlp_dense_matvec_f32(const float* M, const float* x, float* y, int rows,
                            int cols, int64_t ld, void* stream) {
-  return launch<float>(M, x, y, rows, cols, ld, stream);
+  return launch<float>(M, x, y, rows, cols, ld, 1, 0, 0, 0, stream);
 }
 
 int tpdlp_dense_matvec_f64(const double* M, const double* x, double* y,
                            int rows, int cols, int64_t ld, void* stream) {
-  return launch<double>(M, x, y, rows, cols, ld, stream);
+  return launch<double>(M, x, y, rows, cols, ld, 1, 0, 0, 0, stream);
+}
+
+// Y[b] = M_b X[b] for b < batch in one launch (see the batch axis above).
+int tpdlp_dense_matvec_batch_f32(const float* M, const float* x, float* y,
+                                 int rows, int cols, int64_t ld, int batch,
+                                 int64_t stride_m, int64_t ldx, int64_t ldy,
+                                 void* stream) {
+  return launch<float>(M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy,
+                       stream);
+}
+
+int tpdlp_dense_matvec_batch_f64(const double* M, const double* x, double* y,
+                                 int rows, int cols, int64_t ld, int batch,
+                                 int64_t stride_m, int64_t ldx, int64_t ldy,
+                                 void* stream) {
+  return launch<double>(M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy,
+                        stream);
 }
 
 const char* tpdlp_cuda_error_string(int code) {

@@ -15,7 +15,9 @@ no fallback.
 
 `launches` counts kernel launches by name (a wrapper adds one where it
 launches, nowhere else), so a run can show that its main path went through
-the kernels.
+the kernels.  The batched wrappers (`*_batch`: one launch computes
+Y[b] = M_b X[b] for every element b of a fleet, the batch axis that the
+JAX package's vmap gives pallas_call) count under their own names.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ NVCC_FLAGS = (
 #: elements, so 16-byte vector loads stay aligned (4 fp32 / 2 fp64 per load).
 ROW_ALIGN = 4
 
-launches = {"dense_matvec": 0, "band_matvec": 0, "csr_matvec": 0}
+launches = {"dense_matvec": 0, "band_matvec": 0, "csr_matvec": 0,
+            "dense_matvec_batch": 0, "band_matvec_batch": 0,
+            "csr_matvec_batch": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -138,6 +142,21 @@ def _load():
             for fn in (lib.tpdlp_csr_matvec_f32, lib.tpdlp_csr_matvec_f64):
                 fn.argtypes = csr_args
                 fn.restype = ctypes.c_int
+            i64, ptr = ctypes.c_int64, ctypes.c_void_p
+            batch_args = {
+                "dense": [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, i64,
+                          ctypes.c_int, i64, i64, i64, ptr],
+                "band": [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, i64, i64,
+                         i64, i64, ptr],
+                "csr": [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, i64, i64, ptr],
+            }
+            for kind, argtypes in batch_args.items():
+                for t in ("f32", "f64"):
+                    fn = getattr(lib, f"tpdlp_{kind}_matvec_batch_{t}")
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             lib.tpdlp_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tpdlp_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -237,9 +256,12 @@ def band_matvec_plain(slabs: torch.Tensor, starts: torch.Tensor,
     """y = M x for band slabs, in slabs' dtype: the plain PyTorch twin of
     the band_matvec kernel, with the JAX `matvec_xla` arithmetic (gather
     each group's window x[start_g : start_g + WB], zero past n, multiply by
-    the slab, sum over the window, keep the first m rows).  On the CPU in
-    blocks of groups."""
-    ngroups, R, WB = slabs.shape
+    the slab, sum over the window, keep the first m rows).  Only the groups
+    that hold rows below m are computed; on the CPU in blocks of groups."""
+    R, WB = slabs.shape[1:]
+    live = -(-m // R)
+    slabs, starts = slabs[:live], starts[:live]
+    ngroups = slabs.shape[0]
     col = starts.long()[:, None] + torch.arange(WB, device=x.device)
     win = torch.where(col < n, x[col.clamp(max=n - 1)], x.new_zeros(()))
     groups = max(1, _PLAIN_CPU_BLOCK // max(1, R * WB))
@@ -392,3 +414,254 @@ def csr_matvec(crow: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     _check(code, "csr_matvec launch")
     launches["csr_matvec"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# The batch axis: one launch for every element of a fleet
+# (tpdlp_torch/batch).  The JAX package vmaps ExactDenseOp.mv/rmv and
+# BandOp.mv/rmv, and pallas_call's batching rule runs K1 and K2 over a batch
+# grid axis; here the axis is written out.  Element b's result equals, bit
+# for bit, a single launch on element b.
+# ---------------------------------------------------------------------------
+
+
+def _padded_rows(X: torch.Tensor) -> torch.Tensor:
+    """X (B, c), contiguous, its row stride a multiple of ROW_ALIGN (zero
+    columns appended where c is not) and its base 16-byte aligned (a copy
+    of a view that starts off the alignment), so that every X[b] is
+    16-byte aligned: K1's vector loads and K2's bulk copies of x need it."""
+    X = X.contiguous()
+    c = X.shape[1]
+    if c % ROW_ALIGN:
+        X = torch.nn.functional.pad(X, (0, ROW_ALIGN - c % ROW_ALIGN))
+    elif X.data_ptr() % 16:
+        X = X.clone()
+    return X
+
+
+def _check_batch(name, mats, X, shared_dims):
+    """Device and dtype checks shared by the batched wrappers: every tensor
+    of `mats` and X on one CUDA device, float32 or float64 like X, X of
+    rank 2, and a stacked operand's leading dimension X's batch."""
+    if mats[0].device.type != "cuda" or any(
+            t.device != mats[0].device for t in (*mats, X)):
+        raise ValueError(
+            f"{name}: tensors on {[str(t.device) for t in (*mats, X)]}; all "
+            "must be on the same CUDA device (or all on the CPU)")
+    if X.dtype not in (torch.float32, torch.float64) or (
+            mats[0].dtype != X.dtype):
+        raise TypeError(f"{name}: dtypes {mats[0].dtype}/{X.dtype}; the "
+                        "kernel takes float32 or float64, the same for both")
+    if X.dim() != 2 or mats[0].dim() not in (shared_dims, shared_dims + 1):
+        raise ValueError(f"{name}: shapes {tuple(mats[0].shape)} and "
+                         f"{tuple(X.shape)}")
+    if mats[0].dim() == shared_dims + 1 and mats[0].shape[0] != X.shape[0]:
+        raise ValueError(f"{name}: a stack of {mats[0].shape[0]} matrices "
+                         f"for {X.shape[0]} vectors")
+
+
+def dense_matvec_batch_plain(M: torch.Tensor,
+                             X: torch.Tensor) -> torch.Tensor:
+    """Y (B, rows) with Y[b] = M_b X[b], M (rows, cols) shared or
+    (B, rows, cols) stacked, X (B, cols): the plain twin of
+    dense_matvec_batch, element by element the arithmetic of
+    `dense_matvec_plain` (on the CPU in blocks of elements)."""
+    rows, cols = M.shape[-2:]
+    B = X.shape[0]
+    Mb = M if M.dim() == 3 else M.unsqueeze(0)
+    step = max(1, _PLAIN_CPU_BLOCK // max(1, rows * cols))
+    if M.device.type != "cpu" or step >= B:
+        return (Mb * X[:, None, :]).sum(dim=2)
+    return torch.cat([
+        ((Mb[i:i + step] if M.dim() == 3 else Mb) * X[i:i + step, None, :])
+        .sum(dim=2) for i in range(0, B, step)])
+
+
+def dense_matvec_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Y (B, rows) with Y[b] = M_b X[b] in one launch: M a row-major
+    (rows, cols) view shared by every element (row stride a multiple of
+    ROW_ALIGN), or a (B, rows, cols) view of a stack whose matrices sit at
+    one stride; X (B, cols).
+
+    CPU tensors take `dense_matvec_batch_plain`.  CUDA tensors launch the
+    dense_matvec kernel over its batch axis (csrc/dense_matvec.cu) on the
+    current stream; the call does not synchronise."""
+    if M.device.type == "cpu" and X.device.type == "cpu":
+        return dense_matvec_batch_plain(M, X)
+    _check_batch("dense_matvec_batch", (M,), X, 2)
+    rows, cols = M.shape[-2:]
+    B = X.shape[0]
+    if X.shape[1] != cols:
+        raise ValueError(f"dense_matvec_batch: shapes {tuple(M.shape)} @ "
+                         f"{tuple(X.shape)}")
+    ld = M.stride(-2) if rows > 1 else max(M.stride(-2), cols)
+    stride_m = M.stride(0) if M.dim() == 3 else 0
+    if ((M.stride(-1) != 1 and cols > 1) or ld % ROW_ALIGN or ld < cols
+            or stride_m % ROW_ALIGN):
+        raise ValueError(
+            f"dense_matvec_batch: strides {M.stride()} — rows must be "
+            f"contiguous with row and matrix strides multiples of "
+            f"{ROW_ALIGN}")
+    if M.data_ptr() % 16:
+        raise ValueError("dense_matvec_batch: M must be 16-byte aligned")
+    if rows >= 2**31 or cols >= 2**31 or B >= 2**31:
+        raise ValueError("dense_matvec_batch: dimension exceeds int32")
+    Y = torch.empty((B, rows), dtype=M.dtype, device=M.device)
+    if B == 0 or rows == 0:
+        return Y
+    Xp = _padded_rows(X)
+    lib = _load()
+    fn = (lib.tpdlp_dense_matvec_batch_f32 if M.dtype == torch.float32
+          else lib.tpdlp_dense_matvec_batch_f64)
+    stream = torch.cuda.current_stream(M.device).cuda_stream
+    with torch.cuda.device(M.device):
+        code = fn(M.data_ptr(), Xp.data_ptr(), Y.data_ptr(), rows, cols, ld,
+                  B, stride_m, Xp.stride(0), rows, stream)
+    _check(code, "dense_matvec_batch launch")
+    launches["dense_matvec_batch"] += 1
+    return Y
+
+
+def _band_windows_batch(starts, X, n, WB):
+    """(B, ngroups, WB) windows X[b, start : start + WB], zero past n; starts
+    (ngroups,) shared or (B, ngroups)."""
+    col = starts.long()[..., None] + torch.arange(WB, device=X.device)
+    safe = col.clamp(max=n - 1)
+    if starts.dim() == 1:
+        win = X[:, safe]
+    else:
+        win = torch.gather(X, 1, safe.reshape(X.shape[0], -1)).reshape(
+            safe.shape)
+    return torch.where(col < n, win, X.new_zeros(()))
+
+
+def band_matvec_batch_plain(slabs: torch.Tensor, starts: torch.Tensor,
+                            X: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """Y (B, m) with Y[b] = M_b X[b] for band slabs (ngroups, R, WB) shared,
+    or (B, ngroups, R, WB) stacked with starts (B, ngroups): the plain twin
+    of band_matvec_batch, element by element the arithmetic of
+    `band_matvec_plain` (only the groups that hold rows below m)."""
+    R, WB = slabs.shape[-2:]
+    live = -(-m // R)
+    slabs, starts = slabs[..., :live, :, :], starts[..., :live]
+    ngroups = slabs.shape[-3]
+    B = X.shape[0]
+    win = _band_windows_batch(starts, X, n, WB)
+    S = slabs if slabs.dim() == 4 else slabs.unsqueeze(0)
+    step = max(1, _PLAIN_CPU_BLOCK // max(1, ngroups * R * WB))
+    if slabs.device.type != "cpu" or step >= B:
+        Y = (S * win[:, :, None, :]).sum(dim=3)
+    else:
+        Y = torch.cat([
+            ((S[i:i + step] if slabs.dim() == 4 else S)
+             * win[i:i + step, :, None, :]).sum(dim=3)
+            for i in range(0, B, step)])
+    return Y.reshape(B, -1)[:, :m]
+
+
+def band_matvec_batch(slabs: torch.Tensor, starts: torch.Tensor,
+                      X: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """Y (B, m) with Y[b] = M_b X[b] in one launch: slabs (ngroups, R, WB)
+    and starts (ngroups,) int32 shared by every element, or a stack
+    (B, ngroups, R, WB) / (B, ngroups); X (B, n).  Every element has n
+    columns: a window past n reads zeros, not the next element's x.
+
+    CPU tensors take `band_matvec_batch_plain`.  CUDA tensors launch the
+    band_matvec kernel over its batch axis (csrc/band_matvec.cu) on the
+    current stream; the call does not synchronise."""
+    if all(t.device.type == "cpu" for t in (slabs, starts, X)):
+        return band_matvec_batch_plain(slabs, starts, X, m, n)
+    _check_batch("band_matvec_batch", (slabs, starts), X, 3)
+    if starts.dtype != torch.int32:
+        raise TypeError(f"band_matvec_batch: starts dtype {starts.dtype}, "
+                        "expected int32")
+    ngroups, R, WB = slabs.shape[-3:]
+    B = X.shape[0]
+    if starts.shape != slabs.shape[:-2] or X.shape[1] != n or n < 1:
+        raise ValueError(
+            f"band_matvec_batch: shapes slabs {tuple(slabs.shape)}, starts "
+            f"{tuple(starts.shape)}, X {tuple(X.shape)} for n = {n}")
+    if not 0 <= m <= ngroups * R:
+        raise ValueError(f"band_matvec_batch: m = {m} outside the "
+                         f"{ngroups} x {R} row groups")
+    if WB % ROW_ALIGN or WB * slabs.element_size() > _MAX_WINDOW_BYTES:
+        raise ValueError(
+            f"band_matvec_batch: window {WB} must be a multiple of "
+            f"{ROW_ALIGN} and at most {_MAX_WINDOW_BYTES} bytes")
+    if not (slabs.is_contiguous() and starts.is_contiguous()):
+        raise ValueError("band_matvec_batch: slabs and starts must be "
+                         "contiguous")
+    if slabs.data_ptr() % 16:
+        raise ValueError("band_matvec_batch: slabs must be 16-byte aligned")
+    if max(ngroups * R, n, WB, B) >= 2**31:
+        raise ValueError("band_matvec_batch: dimension exceeds int32")
+    Y = torch.empty((B, m), dtype=slabs.dtype, device=slabs.device)
+    if B == 0 or m == 0:
+        return Y
+    Xp = _padded_rows(X)
+    stacked = slabs.dim() == 4
+    lib = _load()
+    fn = (lib.tpdlp_band_matvec_batch_f32 if slabs.dtype == torch.float32
+          else lib.tpdlp_band_matvec_batch_f64)
+    stream = torch.cuda.current_stream(slabs.device).cuda_stream
+    with torch.cuda.device(slabs.device):
+        code = fn(slabs.data_ptr(), starts.data_ptr(), Xp.data_ptr(),
+                  Y.data_ptr(), m, n, R, WB, B,
+                  slabs.stride(0) if stacked else 0,
+                  starts.stride(0) if stacked else 0, Xp.stride(0), m,
+                  stream)
+    _check(code, "band_matvec_batch launch")
+    launches["band_matvec_batch"] += 1
+    return Y
+
+
+def csr_matvec_batch_plain(crow: torch.Tensor, col: torch.Tensor,
+                           val: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Y (B, rows) with Y[b] = M X[b] for one CSR M: the plain twin of
+    csr_matvec_batch, element by element the arithmetic of
+    `csr_matvec_plain`."""
+    data = val[:, None] * X.t()[col.long()]
+    return torch.segment_reduce(data, "sum", offsets=crow, axis=0).t()
+
+
+def csr_matvec_batch(crow: torch.Tensor, col: torch.Tensor,
+                     val: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Y (B, rows) with Y[b] = M X[b] in one launch, for M in CSR form
+    (crow, col int32, val) shared by every element; X (B, cols).
+
+    CPU tensors take `csr_matvec_batch_plain`.  CUDA tensors launch the
+    csr_matvec kernel over its batch axis (csrc/csr_matvec.cu) on the
+    current stream; the call does not synchronise."""
+    if all(t.device.type == "cpu" for t in (crow, col, val, X)):
+        return csr_matvec_batch_plain(crow, col, val, X)
+    _check_batch("csr_matvec_batch", (val, crow, col), X, 1)
+    if crow.dtype != torch.int32 or col.dtype != torch.int32:
+        raise TypeError(f"csr_matvec_batch: index dtypes {crow.dtype}/"
+                        f"{col.dtype}, expected int32")
+    if (crow.dim() != 1 or col.shape != val.shape or val.dim() != 1
+            or crow.numel() < 1):
+        raise ValueError(
+            f"csr_matvec_batch: shapes crow {tuple(crow.shape)}, col "
+            f"{tuple(col.shape)}, val {tuple(val.shape)}")
+    if not all(t.is_contiguous() for t in (crow, col, val)):
+        raise ValueError("csr_matvec_batch: crow, col and val must be "
+                         "contiguous")
+    rows, nnz = crow.numel() - 1, val.numel()
+    B = X.shape[0]
+    if max(rows, nnz, X.shape[1], B) >= 2**31:
+        raise ValueError("csr_matvec_batch: dimension exceeds int32")
+    Y = torch.empty((B, rows), dtype=val.dtype, device=val.device)
+    if B == 0 or rows == 0:
+        return Y
+    X = X.contiguous()
+    lib = _load()
+    fn = (lib.tpdlp_csr_matvec_batch_f32 if val.dtype == torch.float32
+          else lib.tpdlp_csr_matvec_batch_f64)
+    stream = torch.cuda.current_stream(val.device).cuda_stream
+    with torch.cuda.device(val.device):
+        code = fn(crow.data_ptr(), col.data_ptr(), val.data_ptr(),
+                  X.data_ptr(), Y.data_ptr(), rows, csr_group(rows, nnz), B,
+                  X.stride(0), rows, stream)
+    _check(code, "csr_matvec_batch launch")
+    launches["csr_matvec_batch"] += 1
+    return Y

@@ -19,7 +19,9 @@ bandwidth.
 
 Every product, K x and K'y, runs the CUDA kernel `band_matvec`
 (ops/_kernels.py, csrc/band_matvec.cu) for CUDA tensors and its plain
-PyTorch twin for CPU tensors.  Left out of the port, on purpose:
+PyTorch twin for CPU tensors; a fleet sharing this K (tpdlp_torch/batch)
+hands them a (B, n) batch, which takes one launch of the kernel's batch
+axis.  Left out of the port, on purpose:
 `mv_fast`/`rmv_fast` (`_fast_ok`, `_FAST_VMEM_BUDGET`) keep the TPU's slabs
 VMEM-resident through a rounding MXU dot; on the H100 an fp32 product is
 exact and `has_fast_products` stays False.  `use_pallas` exists for
@@ -36,7 +38,11 @@ import scipy.sparse as sp
 import torch
 
 from tpdlp_torch.device import resolve_device
-from tpdlp_torch.ops._kernels import band_matvec, band_matvec_plain
+from tpdlp_torch.ops._kernels import (
+    band_matvec,
+    band_matvec_batch,
+    band_matvec_plain,
+)
 from tpdlp_torch.ops.base import LinOp
 
 GB = 8  # the group count pads to a multiple of this (JAX grid stripes)
@@ -118,7 +124,11 @@ class BandMat:
     n: int
 
     def matvec(self, x):
-        """y = M x through the band_matvec kernel (its twin on the CPU)."""
+        """y = M x through the band_matvec kernel (its twin on the CPU);
+        a (B, n) batch in one launch of the kernel's batch axis."""
+        if x.dim() == 2:
+            return band_matvec_batch(self.slabs, self.starts, x, self.m,
+                                     self.n)
         return band_matvec(self.slabs, self.starts, x, self.m, self.n)
 
     def matvec_plain(self, x):

@@ -40,6 +40,12 @@ class LinOp:
         return self.rmv(y)
 
     @property
+    def batch_shape(self) -> tuple:
+        """Leading axes of the operator's vectors: () for one K, (B,) for a
+        stack of B (tpdlp_torch/batch/stacked.py)."""
+        return ()
+
+    @property
     def has_fast_products(self) -> bool:
         """True when mv_fast/rmv_fast differ from mv/rmv (then restart
         checks refresh carried products through mv/rmv before certifying

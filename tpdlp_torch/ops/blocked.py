@@ -143,6 +143,8 @@ class _EllMat:
         return v_blk[self.col_idx]
 
     def matvec(self, x):
+        if x.dim() == 2:  # a (B, n) batch: the einsum of every element
+            return self.matmat(x.t()).t().contiguous()
         y = torch.einsum("bwrc,bwc->br", self.tiles.to(x.dtype),
                          self._blocks(x))
         return y.reshape(-1)[: self.m]

@@ -5,7 +5,10 @@ run the Pallas kernel `_matvec_kernel`).  Here every product, K x and K'y,
 runs the CUDA kernel `dense_matvec` (ops/_kernels.py, csrc/dense_matvec.cu)
 for CUDA tensors and its plain PyTorch twin for CPU tensors.  On the H100
 an fp32 product is exact, so there is no separate throughput path:
-`has_fast_products` is False and mv_fast/rmv_fast are mv/rmv.
+`has_fast_products` is False and mv_fast/rmv_fast are mv/rmv.  A batch of
+vectors (a (B, n) X, a fleet sharing this K: tpdlp_torch/batch) takes one
+launch of the kernel's batch axis (`dense_matvec_batch`) per product, where
+the JAX package vmaps the Pallas call.
 
 Layout: K (m, n) is stored row-major with its row stride padded to a
 multiple of `ROW_ALIGN` elements, so that the kernel's 16-byte loads stay
@@ -23,7 +26,11 @@ from typing import Optional
 
 import torch
 
-from tpdlp_torch.ops._kernels import ROW_ALIGN, dense_matvec
+from tpdlp_torch.ops._kernels import (
+    ROW_ALIGN,
+    dense_matvec,
+    dense_matvec_batch,
+)
 from tpdlp_torch.ops.base import LinOp
 
 
@@ -91,9 +98,13 @@ class ExactDenseOp(LinOp):
         return (self.fwd.numel() + self.n * ld_m) * item
 
     def mv(self, x):
+        if x.dim() == 2:
+            return dense_matvec_batch(self.mat, x)
         return dense_matvec(self.mat, x)
 
     def rmv(self, y):
+        if y.dim() == 2:
+            return dense_matvec_batch(self.bwd[:, : self.m], y)
         return dense_matvec(self.bwd[:, : self.m], y)
 
     # Batched products: plain matrix products, off the iteration path (as

@@ -18,7 +18,9 @@ band and block-ELL operators give.  The JAX `SparseOp` returns -inf there
 the port does not copy that.
 
 The batched products `mm`/`rmm` (off the iteration path) are torch's own
-sparse-dense products.
+sparse-dense products.  A fleet sharing this K (tpdlp_torch/batch) hands
+`mv`/`rmv` a (B, n) batch, which takes one launch of the kernel's batch
+axis (`csr_matvec_batch`), so its products replay bit for bit too.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import scipy.sparse as sp
 import torch
 
 from tpdlp_torch.device import resolve_device
-from tpdlp_torch.ops._kernels import csr_matvec
+from tpdlp_torch.ops._kernels import csr_matvec, csr_matvec_batch
 from tpdlp_torch.ops.base import LinOp
 
 
@@ -69,8 +71,10 @@ def _to_device(K: sp.csr_matrix, dtype, device) -> torch.Tensor:
 
 
 def _matvec(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return csr_matvec(mat.crow_indices(), mat.col_indices(), mat.values(),
-                      x)
+    """mat @ x; a (B, cols) batch in one launch of the kernel's batch
+    axis."""
+    fn = csr_matvec_batch if x.dim() == 2 else csr_matvec
+    return fn(mat.crow_indices(), mat.col_indices(), mat.values(), x)
 
 
 def _abs_segment_norm(mat: torch.Tensor, ord) -> torch.Tensor:

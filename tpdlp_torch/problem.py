@@ -107,7 +107,11 @@ def _zeroed_at_inf(v, inf_mask):
 
 @dataclasses.dataclass
 class DeviceProblem:
-    """Device-side problem (scaled data + unscaled termination data)."""
+    """Device-side problem (scaled data + unscaled termination data).
+
+    A fleet (tpdlp_torch/batch) holds the same fields with a leading batch
+    axis: (B, n) / (B, m) vectors and (B, 1) norms; a K shared by the fleet
+    keeps one operator and (m,) / (n,) diagonals."""
 
     op: Any  # LinOp for the scaled K_s
     c: torch.Tensor  # (n,) scaled
@@ -133,11 +137,11 @@ class DeviceProblem:
 
     @property
     def n(self) -> int:
-        return self.c.shape[0]
+        return self.c.shape[-1]
 
     @property
     def m(self) -> int:
-        return self.q.shape[0]
+        return self.q.shape[-1]
 
 
 def device_problem(

@@ -23,28 +23,38 @@ def ruiz_equilibrate(op, max_iter: int = 20, eps: float = 1e-6):
 
     `op` itself is left as it is: the first pass scales a copy, and every
     later pass scales that copy in place, so the device holds at most two
-    copies of K (the caller's and the scaled one)."""
+    copies of K (the caller's and the scaled one).  A stack of B operators
+    (`op.batch_shape` == (B,), tpdlp_torch/batch/stacked.py) gets (B, m) /
+    (B, n) diagonals, and each element stops at its own convergence, as
+    the JAX `while_loop` does under vmap: a converged element's factors
+    become exactly 1, which leaves its matrix and diagonals as they are
+    (and one operator's factors are its norms, bit for bit)."""
     m, n = op.shape
-    dtype, dev = op.dtype, op.device
-    d_row = torch.ones((m,), dtype=dtype, device=dev)
-    d_col = torch.ones((n,), dtype=dtype, device=dev)
+    lead, dtype, dev = op.batch_shape, op.dtype, op.device
+    d_row = torch.ones(lead + (m,), dtype=dtype, device=dev)
+    d_col = torch.ones(lead + (n,), dtype=dtype, device=dev)
     ones_m, ones_n = d_row, d_col
+    active = torch.ones(lead + (1,), dtype=torch.bool, device=dev)
     cur = op
 
     def scaled(dr, dc):
         return op.scale(dr, dc) if cur is op else cur.scale_(dr, dc)
 
+    def worst(norms):
+        return torch.amax(torch.abs(1.0 - norms), dim=-1, keepdim=True)
+
     for _ in range(max_iter):
         row_norms = _safe(torch.sqrt(cur.row_abs_norms("inf")), eps)
-        d_row = d_row / row_norms
-        cur = scaled(1.0 / row_norms, ones_n)
+        rn = torch.where(active, row_norms, 1.0)
+        d_row = d_row / rn
+        cur = scaled(1.0 / rn, ones_n)
         col_norms = _safe(torch.sqrt(cur.col_abs_norms("inf")), eps)
-        d_col = d_col / col_norms
-        cur = scaled(ones_m, 1.0 / col_norms)
-        converged = (torch.max(torch.abs(1.0 - row_norms)) < eps) & (
-            torch.max(torch.abs(1.0 - col_norms)) < eps
-        )
-        if bool(converged):
+        cn = torch.where(active, col_norms, 1.0)
+        d_col = d_col / cn
+        cur = scaled(ones_m, 1.0 / cn)
+        active = active & ~((worst(row_norms) < eps)
+                            & (worst(col_norms) < eps))
+        if not bool(active.any()):
             break
     return cur, d_row, d_col
 
@@ -62,13 +72,14 @@ def scale_problem(op, c, q, l, u, *, method: str, ruiz_iters=20,
                   ruiz_eps=1e-6, pc_alpha=1.0):
     """Scale (K, c, q, l, u); returns (op_s, c_s, q_s, l_s, u_s, d_row, d_col).
 
-    d_row/d_col satisfy K_s = diag(d_row) K diag(d_col); ones when
+    d_row/d_col satisfy K_s = diag(d_row) K diag(d_col) ((B, m) / (B, n)
+    for a stack of B, whose vectors are (B, m) / (B, n)); ones when
     method == "none"."""
-    m, n = op.shape
-    dtype, dev = op.dtype, op.device
-    d_row = torch.ones((m,), dtype=dtype, device=dev)
-    d_col = torch.ones((n,), dtype=dtype, device=dev)
     if method == "none":
+        m, n = op.shape
+        lead, dtype, dev = op.batch_shape, op.dtype, op.device
+        d_row = torch.ones(lead + (m,), dtype=dtype, device=dev)
+        d_col = torch.ones(lead + (n,), dtype=dtype, device=dev)
         return op, c, q, l, u, d_row, d_col
     if method not in ("ruiz", "ruiz+pc"):
         raise ValueError(f"unknown scaling method: {method!r}")

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from tpdlp_torch.config import Status
+from tpdlp_torch.solver.reduce import all_, dot, norm
 
 _INF = float("inf")
 
@@ -95,13 +96,13 @@ def primal_ray_certifies(pb, r, k_r, tol, cone: Optional[Cone] = None):
     product k_r = K r: A r ~ 0, G r >= -tol, strict descent c'r <= -tol,
     and recession-cone membership of [l, u]."""
     cone = cone or cone_of(pb, tol)
-    equality_ok = torch.linalg.vector_norm(
+    equality_ok = norm(
         torch.where(cone.eq_rows, k_r, cone.zero)) <= tol
-    inequality_ok = torch.all(
+    inequality_ok = all_(
         torch.where(cone.eq_rows, cone.inf, k_r) >= -tol)
-    objective_ok = torch.dot(pb.c, r) <= -tol  # strict descent along the ray
+    objective_ok = dot(pb.c, r) <= -tol  # strict descent along the ray
     # A NaN in r fails objective_ok, so the cone test may pass it.
-    bounds_ok = torch.all((r >= cone.r_lo) & (r <= cone.r_hi))
+    bounds_ok = all_((r >= cone.r_lo) & (r <= cone.r_hi))
     return equality_ok & inequality_ok & objective_ok & bounds_ok
 
 
@@ -111,12 +112,12 @@ def dual_ray_certifies(pb, yr, lr, kt_yr, tol, cone: Optional[Cone] = None):
     and a strictly positive dual-objective growth rate (the adjusted-dual
     pairing)."""
     cone = cone or cone_of(pb, tol)
-    dual_res_ok = torch.linalg.vector_norm(kt_yr - lr) <= tol
-    dy_sign_ok = torch.all(torch.where(cone.eq_rows, cone.zero, yr) >= -tol)
+    dual_res_ok = norm(kt_yr - lr) <= tol
+    dy_sign_ok = all_(torch.where(cone.eq_rows, cone.zero, yr) >= -tol)
     combo = (
-        torch.dot(pb.q, yr)
-        + torch.dot(pb.l_dual, torch.clamp_min(lr, 0.0))
-        + torch.dot(pb.u_dual, torch.clamp_max(lr, 0.0))
+        dot(pb.q, yr)
+        + dot(pb.l_dual, torch.clamp_min(lr, 0.0))
+        + dot(pb.u_dual, torch.clamp_max(lr, 0.0))
     )
     return dual_res_ok & dy_sign_ok & (combo >= tol)
 
@@ -139,11 +140,11 @@ def detect_infeasibility(pb, x, y, x_prev, y_prev, lam, lam_prev, k_dx,
     dlam = lam - lam_prev
 
     # Dual infeasibility (a primal unbounded ray).
-    r, k_r = _normalize_all(cone, torch.linalg.vector_norm(dx), dx, k_dx)
+    r, k_r = _normalize_all(cone, norm(dx), dx, k_dx)
     dual_infeasible = primal_ray_certifies(pb, r, k_r, tol, cone)
 
     # Primal infeasibility (a dual unbounded ray).
-    ray_norm = torch.sqrt(torch.dot(dy, dy) + torch.dot(dlam, dlam))
+    ray_norm = torch.sqrt(dot(dy, dy) + dot(dlam, dlam))
     yr, lr, kt_yr = _normalize_all(cone, ray_norm, dy, dlam, kt_dy)
     primal_infeasible = dual_ray_certifies(pb, yr, lr, kt_yr, tol, cone)
     return _verdict(cone, dual_infeasible, primal_infeasible)
@@ -157,11 +158,11 @@ def validate_normalized_candidate(pb, cert, x_ray, kx_ray, y_ray, kty_ray,
     (The raw convergence trigger also fires on converging feasible solves;
     see the JAX package's docstring.)"""
     cone = cone or cone_of(pb, tol)
-    r, k_r = _normalize_all(cone, torch.linalg.vector_norm(x_ray), x_ray,
+    r, k_r = _normalize_all(cone, norm(x_ray), x_ray,
                             kx_ray)
     ok_primal_ray = primal_ray_certifies(pb, r, k_r, tol, cone)
 
-    yr, kt_yr = _normalize_all(cone, torch.linalg.vector_norm(y_ray), y_ray,
+    yr, kt_yr = _normalize_all(cone, norm(y_ray), y_ray,
                                kty_ray)
     # The bound-multiplier recession cone is the lambda-projection cone, so
     # lr = proj(K'yr) makes stationarity measure K'yr's distance from it.
@@ -182,10 +183,10 @@ def normalized_iterate_certificates(x, y, x_norm_prev, y_norm_prev, k,
     kf = torch.clamp_min(k.to(x.dtype), 1.0)
     x_norm = x / kf
     y_norm = y / kf
-    x_conv = torch.linalg.vector_norm(x_norm - x_norm_prev) < tol_conv
-    x_nonzero = torch.linalg.vector_norm(x_norm) > tol_nonzero
-    y_conv = torch.linalg.vector_norm(y_norm - y_norm_prev) < tol_conv
-    y_nonzero = torch.linalg.vector_norm(y_norm) > tol_nonzero
+    x_conv = norm(x_norm - x_norm_prev) < tol_conv
+    x_nonzero = norm(x_norm) > tol_nonzero
+    y_conv = norm(y_norm - y_norm_prev) < tol_conv
+    y_nonzero = norm(y_norm) > tol_nonzero
     status = _verdict(cone, x_conv & x_nonzero, y_conv & y_nonzero)
     return status, x_norm, y_norm
 
@@ -204,8 +205,8 @@ def normalized_average_certificates(x_sum, y_sum, x, y, k, tol_conv=1e-4,
     avg_y = 2.0 * y_sum / den
     prev_x = 2.0 * (x_sum - x) / den_prev
     prev_y = 2.0 * (y_sum - y) / den_prev
-    x_conv = torch.linalg.vector_norm(avg_x - prev_x) < tol_conv
-    x_nonzero = torch.linalg.vector_norm(avg_x) > tol_nonzero
-    y_conv = torch.linalg.vector_norm(avg_y - prev_y) < tol_conv
-    y_nonzero = torch.linalg.vector_norm(avg_y) > tol_nonzero
+    x_conv = norm(avg_x - prev_x) < tol_conv
+    x_nonzero = norm(avg_x) > tol_nonzero
+    y_conv = norm(avg_y - prev_y) < tol_conv
+    y_nonzero = norm(avg_y) > tol_nonzero
     return _verdict(cone, x_conv & x_nonzero, y_conv & y_nonzero)

@@ -47,6 +47,7 @@ from tpdlp_torch.solver.infeasibility import (
     project_to_cone,
     validate_normalized_candidate,
 )
+from tpdlp_torch.solver.reduce import dot, norm
 from tpdlp_torch.solver.state import PDHGState
 
 _RUNNING = int(Status.RUNNING)
@@ -67,8 +68,8 @@ def primal_weight_update(x_restart, x, y_restart, y, omega, theta_smooth):
     """Log-smoothed primal-weight update:
     omega <- exp(theta log(||dy||/||dx||) + (1-theta) log(omega)),
     guarded on nonzero iterate movement."""
-    dx = torch.linalg.vector_norm(x_restart - x)
-    dy = torch.linalg.vector_norm(y_restart - y)
+    dx = norm(x_restart - x)
+    dy = norm(y_restart - y)
     new = torch.exp(
         theta_smooth * torch.log(dy / dx)
         + (1.0 - theta_smooth) * torch.log(omega)
@@ -410,12 +411,12 @@ def make_live(pb, cfg: SolverConfig):
         z_kty = w * (2.0 * kty_f - st.kty) + wa * st.kty_restart
 
         # The omega-weighted fixed-point residual ||z - T(z)||, in exact
-        # dots (torch.dot never takes a TF32 path); its value at t == 1 is
-        # the cycle's baseline (kkt_first).
+        # dots (neither torch.dot nor a row sum takes a TF32 path); its
+        # value at t == 1 is the cycle's baseline (kkt_first).
         dx = x_f - st.x
         dy = y_f - st.y
-        fp = torch.sqrt(st.omega * torch.dot(dx, dx)
-                        + torch.dot(dy, dy) / st.omega)
+        fp = torch.sqrt(st.omega * dot(dx, dx)
+                        + dot(dy, dy) / st.omega)
         return st2.replace(
             fp_res=fp,
             kkt_first=torch.where(t_new == 1, fp, st2.kkt_first),

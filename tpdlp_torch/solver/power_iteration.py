@@ -20,10 +20,13 @@ def initial_vector(n: int, seed: int, dtype, device) -> torch.Tensor:
     return b0.to(dtype=dtype, device=device)
 
 
-def spectral_norm_estimate(op, seed: int, num_iters: int = 100):
-    """||K||_2 estimate: num_iters power iterations of b <- K'(K b)."""
+def spectral_norm_estimate(op, seed: int, num_iters: int = 100,
+                           start=None):
+    """||K||_2 estimate: num_iters power iterations of b <- K'(K b), from
+    `initial_vector(n, seed)` or, where given, the (n,) vector `start`."""
     n = op.shape[1]
-    b = initial_vector(n, seed, op.dtype, op.device)
+    b = initial_vector(n, seed, op.dtype, op.device) if start is None else (
+        start)
     for _ in range(num_iters):
         b = op.rmv(op.mv(b))
         b = b / torch.linalg.vector_norm(b)

@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from tpdlp_torch.solver.reduce import dot, norm
+
 
 def project_lambda_box(grad, is_neg_inf, is_pos_inf):
     """Project the reduced cost onto the normal cone of [l, u].
@@ -53,20 +55,20 @@ def compute_residuals(
     grad = c - kty
     lam = project_lambda_box(grad, is_neg_inf, is_pos_inf)
 
-    prim_obj = torch.dot(c, x)
-    dual_obj = torch.dot(q, y)
+    prim_obj = dot(c, x)
+    dual_obj = dot(q, y)
     adjusted_dual = (
         dual_obj
-        + torch.dot(l_dual, torch.maximum(lam, zero))
-        + torch.dot(u_dual, torch.minimum(lam, zero))
+        + dot(l_dual, torch.maximum(lam, zero))
+        + dot(u_dual, torch.minimum(lam, zero))
     )
     gap = adjusted_dual - prim_obj
 
     full_res = kx - q
     # Inequality rows G x >= h only penalise violation.
     res = torch.where(ineq_mask, torch.minimum(full_res, zero), full_res)
-    primal_res = torch.linalg.vector_norm(res)
-    dual_res = torch.linalg.vector_norm(grad - lam)
+    primal_res = norm(res)
+    dual_res = norm(grad - lam)
     return Residuals(primal_res, dual_res, gap, prim_obj, adjusted_dual)
 
 

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from tpdlp_torch.config import SolverConfig, fast_step_products
+from tpdlp_torch.solver.reduce import dot
 
 
 def step_mv(pb, cfg: SolverConfig):
@@ -96,8 +97,8 @@ def adaptive_step(
         dx = x_new - x
         dy = y_new - y
         k_dx = kx_new - kx  # K dx by linearity — no extra product
-        denom = 2.0 * torch.dot(dy, k_dx)
-        num = omega * torch.dot(dx, dx) + torch.dot(dy, dy) / omega
+        denom = 2.0 * dot(dy, k_dx)
+        num = omega * dot(dx, dx) + dot(dy, dy) / omega
         eta_bar = torch.where(denom != 0.0, num / torch.abs(denom), inf)
         eta_prime = torch.minimum(
             torch.where(torch.isinf(eta_bar), inf, shrink * eta_bar),
@@ -116,13 +117,22 @@ def adaptive_step(
     if cfg.adaptive_rule != "linesearch":
         raise ValueError(f"unknown adaptive_rule: {cfg.adaptive_rule!r}")
 
+    # Every element not yet accepted retries with its eta' while any does
+    # (one solve's `accepted` is 0-d, a fleet's (B, 1)); an accepted
+    # element keeps its step, as under the JAX package's vmap.
     x_f, y_f, kx_f, ep_f, accepted = trial(eta)
     eta_f = eta
-    trials = 1
-    while trials < cfg.max_backtracks and not bool(accepted):
-        # Retry with the proposed (smaller) eta'.
-        eta_f = ep_f
-        x_f, y_f, kx_f, ep_f, accepted = trial(eta_f)
-        trials += 1
-    j_inc = torch.full((), trials, dtype=torch.int32, device=x.device)
-    return StepResult(x_f, y_f, kx_f, eta_f, ep_f, j_inc)
+    trials = torch.ones_like(accepted, dtype=torch.int32)
+    done = 1
+    while done < cfg.max_backtracks and not bool(accepted.all()):
+        retry = ~accepted
+        x_t, y_t, kx_t, ep_t, acc_t = trial(ep_f)
+        x_f = torch.where(retry, x_t, x_f)
+        y_f = torch.where(retry, y_t, y_f)
+        kx_f = torch.where(retry, kx_t, kx_f)
+        eta_f = torch.where(retry, ep_f, eta_f)
+        ep_f = torch.where(retry, ep_t, ep_f)
+        accepted = torch.where(retry, acc_t, accepted)
+        trials = trials + retry.to(torch.int32)
+        done += 1
+    return StepResult(x_f, y_f, kx_f, eta_f, ep_f, trials)
