@@ -145,6 +145,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              with --fishnet, then --batch_solve: every row linprog's
              verdict.
 
+19. shard  — sharded solves over torch.distributed on the one card, at
+             full width, the main path's settings: one NCCL rank (1x1, this
+             process) and four gloo ranks (a 2x2 mesh; NCCL refuses two
+             ranks on one card, so gloo stages the CUDA tensors through
+             the host).
+             mittelmann-s through dense 2D blocks (K1 on each rank's
+             block): Solved, held on the host at 10*tol, within 5*tol of
+             the unsharded objective; banded 8192 through band strips (K2
+             on each rank's groups) and mittelmann-s through block-ELL
+             strips: Solved; banded 100k through band strips for
+             SHARD_BAND_KKT passes, each rank's peak device memory below
+             the unsharded band solve's.  On every rank the kernel's
+             launches equal the single solve's formula and the product
+             all_reduces one per product; every rank returns the same bits.
+             entry.dryrun_multichip(1) runs on the card beside the 2x2
+             group (one NCCL rank; four would need four cards).
+20. harness — bench/runner.py on mittelmann-s (3 seeds; one row of
+             bench.py's schema, vs_baseline null: no reference tree here)
+             and bench/roofline.py for dense, band and block-ELL at
+             mittelmann-s-class sizes (achieved GB/s and the share of
+             3.35 TB/s, beside the card's name and power limit).
+
 Every solve's kernel launches are held to the count the code implies: two
 per issued iteration and per issued restart check, plus the power
 iteration's and init_state's (an escalated solve: the sum over its inner
@@ -292,6 +314,20 @@ FLEET_SPARSE = 8
 #: The batched kernels' rows: the afiro fleet's K and K' at a ragged
 #: B = 37 as well as at 10,000.
 RAGGED_B = 37
+#: The shard phase: the banded 100k instance on four ranks for this many
+#: KKT passes (the per-rank memory is what it shows); ranks share the card
+#: under gloo (NCCL refuses two ranks on one card), and a 1x1 mesh drives
+#: NCCL.
+SHARD_BAND_KKT = 2_000
+SHARD_RANKS = 4
+#: Timed all_reduces of the transport probe, on the host and on the card.
+ALL_REDUCE_PROBES = 100
+#: The harness phase: runner seeds (bench.py's 3), roofline's iterations
+#: (the JAX harness's default 2,000 halved for the time limit) and
+#: mittelmann-s-class sizes (m, n) for dense, band and block-ELL.
+RUNNER_SEEDS = 3
+ROOFLINE_ITERS = 1_000
+ROOFLINE_SHAPE = (2000, 5000)
 
 #: Data-sheet rates by card: HBM bytes/s, fp32 and fp64 flop/s outside the
 #: tensor cores (NVIDIA data sheets; SXM unless the name says otherwise).
@@ -2306,6 +2342,260 @@ def fishnet_phase(dev, p_s, cold, oracle):
         _cli_sweep([*extra, "--matrix_format", "dense"], oracle, files, tag)
 
 
+def _shard_rank(mesh, dev, cases):
+    """One rank of the shard phase: each case solved on this rank's mesh
+    (fp32, the main path's settings), kernel launches, the loop's issued
+    counts, the mesh's collectives and the peak device memory set to 0
+    just before each solve and read just after (the memory as the peak
+    above what was allocated before).  A case names its problem or the
+    generator call that makes it (each rank makes its own).  Returns
+    {"cases": a result per case, "entered", "left": this call's wall-clock
+    times, which place the spawn and exit around it, "all_reduce_ms": the
+    time of one all_reduce of 8,192 fp32 on the host and on the card}."""
+    entered = time.time()
+    from tpdlp_torch import SolverConfig, generate_banded_lp, solve
+    from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.solver import loop as L
+
+    import torch.distributed as dist
+
+    # The transport alone: an all_reduce of 8,192 fp32 over the group on
+    # the card, and under gloo on the host too (about mittelmann-s's
+    # vector lengths).
+    probe = {}
+    nccl = dist.get_backend(mesh.group) == "nccl"
+    for where in (dev,) if nccl else ("cpu", dev):
+        t = torch.zeros(8192, device=where)
+        dist.all_reduce(t, group=mesh.group)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(ALL_REDUCE_PROBES):
+            dist.all_reduce(t, group=mesh.group)
+        torch.cuda.synchronize(dev)
+        probe[str(where)] = (time.perf_counter() - t0) / ALL_REDUCE_PROBES
+    out = []
+    for case in cases:
+        p = case.get("problem") or generate_banded_lp(**case["banded"])
+        cfg = SolverConfig(**case["cfg"])
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        K.reset_launches()
+        L.reset_launched()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        r = solve(p, cfg, dtype=torch.float32, device=dev, seed=0,
+                  mesh=mesh, matrix_format=case["format"])
+        out.append({
+            "wall_s": time.perf_counter() - t0, "status": int(r.status),
+            "status_string": r.status_string, "k": r.iterations,
+            "n": r.restarts, "j": r.kkt_passes, "objective": r.objective,
+            "x": r.x, "y": r.y, "launches": dict(K.launches),
+            "issued": dict(L.launched), "collectives": dict(mesh.counts),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev)
+                            - before) / 1e9,
+        })
+    return {"cases": out, "entered": entered, "left": time.time(),
+            "all_reduce_ms": {k: v * 1e3 for k, v in probe.items()}}
+
+
+def _shard_rows(tag, cases, per_rank, kernel, expect_fn):
+    """Check one group's runs: every rank the same result bits; the path's
+    kernel launched as the single solve's formula says (none for
+    block-ELL), and one product all_reduce for each product; no other
+    kernel.  Returns (row, rank 0's result) pairs."""
+    rows = []
+    for i, case in enumerate(cases):
+        runs = [rank["cases"][i] for rank in per_rank]
+        r0 = runs[0]
+        for r in runs[1:]:
+            if (r["k"], r["j"], r["status"]) != (r0["k"], r0["j"],
+                                                 r0["status"]) or not (
+                    np.array_equal(r["x"], r0["x"])
+                    and np.array_equal(r["y"], r0["y"])):
+                raise AssertionError(f"{tag} {case['name']}: ranks differ")
+        products = expect_fn(case, r0)
+        kern = kernel[i]
+        for rank, r in enumerate(runs):
+            got = r["launches"][kern] if kern else products
+            others = {k: v for k, v in r["launches"].items()
+                      if k != kern and v}
+            if got != products or others:
+                raise AssertionError(
+                    f"{tag} {case['name']} rank {rank}: launches "
+                    f"{r['launches']}, expected {products} of {kern}")
+            if r["collectives"]["product"] != products:
+                raise AssertionError(
+                    f"{tag} {case['name']} rank {rank}: "
+                    f"{r['collectives']['product']} product all_reduces "
+                    f"for {products} products")
+        row = {"mesh": tag, "instance": case["name"],
+               "format": case["format"], "status": r0["status_string"],
+               "k": r0["k"], "n": r0["n"], "j": r0["j"],
+               "objective": r0["objective"], "wall_s": r0["wall_s"],
+               "kernel": kern, "launches_per_rank": products,
+               "all_reduces_per_product":
+                   r0["collectives"]["product"] / products,
+               "collectives_per_rank": r0["collectives"],
+               "iterations_issued": r0["issued"]["iterations"],
+               "restart_checks_issued": r0["issued"]["restart_checks"],
+               "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in runs]}
+        rows.append((row, r0))
+    return rows
+
+
+def shard_phase(dev, p_s, p_b8, cold_s, band_row):
+    """Sharded solves over torch.distributed on the one card, at full
+    width: one NCCL rank (a 1x1 mesh, in this process) and four gloo ranks
+    sharing the card (2x2 mesh).  mittelmann-s through dense 2D blocks
+    (Solved, held on the host at 10 * tol, within 5 * tol of the
+    unsharded objective), banded 8192 through band strips, mittelmann-s
+    through block-ELL strips ("sparse"), and banded 100k through band
+    strips for SHARD_BAND_KKT passes, whose per-rank peak memory must stay
+    below the unsharded band solve's.  Each rank's kernel launches equal
+    the single solve's formula, and its product all_reduces one per
+    product.  The NCCL rank runs first, alone; then the 2x2 group, with
+    entry.dryrun_multichip(1) (the entry point on the card: one NCCL rank,
+    spawned) beside it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpdlp_torch.entry import dryrun_multichip
+    from tpdlp_torch.shard import run_ranks
+
+    main = dict(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz", adaptive=True,
+                primal_weight_update=True, time_limit=600)
+    n, mi, me, bw = BAND_100K
+    cases = [
+        {"name": p_s.name, "problem": p_s, "format": "dense", "cfg": main},
+        {"name": p_b8.name, "problem": p_b8, "format": "band", "cfg": main},
+        {"name": p_s.name, "problem": p_s, "format": "sparse", "cfg": main},
+        {"name": "banded-100k", "format": "band",
+         "banded": dict(n=n, m_ineq=mi, m_eq=me, bandwidth=bw, seed=0),
+         "cfg": dict(main, max_kkt=SHARD_BAND_KKT)},
+    ]
+    kernels = ["dense_matvec", "band_matvec", None, "band_matvec"]
+
+    def products(case, r):
+        from tpdlp_torch import SolverConfig
+
+        return expected_launches(SolverConfig(**case["cfg"]), _as_result(r),
+                                 r["issued"])
+
+    def timed(fn, *a, **kw):
+        t = time.perf_counter()
+        return fn(*a, **kw), time.perf_counter() - t
+
+    nccl, nccl_s = timed(_nccl_in_process, dev, cases[:1])
+    # The dry run's one NCCL rank beside the 2x2 group: each all_reduce of
+    # the group waits on the host's loopback (gloo), which leaves the card
+    # mostly idle.
+    with ThreadPoolExecutor(2) as pool:
+        spawned = time.time()
+        gloo_f = pool.submit(timed, run_ranks, _shard_rank, SHARD_RANKS,
+                             backend="gloo", device=str(dev), shape=(2, 2),
+                             args=(cases,), timeout=900)
+        dry_f = pool.submit(timed, dryrun_multichip, 1, device=dev)
+        gloo, gloo_s = gloo_f.result()
+        returned = time.time()
+        dry, dry_s = dry_f.result()
+    emit("dryrun_multichip", ranks=1, backend="nccl", seconds=dry_s,
+         **{k: {"k": v[0], "objective": v[1]} for k, v in dry.items()})
+    rows = (_shard_rows("2x2 gloo", cases, gloo, kernels, products)
+            + _shard_rows("1x1 nccl", cases[:1], nccl, kernels, products))
+    problems = {p_s.name: p_s, p_b8.name: p_b8}
+    launches = {"dense_matvec": {}, "band_matvec": {}}
+    for row, r0 in rows:
+        p = problems.get(row["instance"])
+        if p is not None:
+            check = host_residuals(p, r0["x"], r0["y"])
+            row.update(check)
+            _check_solution(f"{row['mesh']} {row['instance']} "
+                            f"{row['format']}", _as_result(r0), check)
+        if row["instance"] == p_s.name and row["format"] == "dense":
+            row["unsharded_objective"] = cold_s["objective"]
+            if abs(r0["objective"] - cold_s["objective"]) > 5 * TOL * (
+                    1 + abs(cold_s["objective"])):
+                raise AssertionError(f"{row['mesh']}: objective "
+                                     f"{r0['objective']} against the "
+                                     f"unsharded {cold_s['objective']}")
+        if row["instance"] == "banded-100k":
+            row["unsharded_peak_mem_gb"] = (band_row["peak_mem_gb"]
+                                            - band_row["mem_before_gb"])
+            if max(row["peak_mem_gb_per_rank"]) >= row[
+                    "unsharded_peak_mem_gb"]:
+                raise AssertionError(f"banded-100k: a rank peaked at "
+                                     f"{row['peak_mem_gb_per_rank']} GB")
+        if row["kernel"]:
+            key = f"{row['mesh']} {row['instance']}"
+            launches[row["kernel"]][key] = row["launches_per_rank"]
+        emit("shard", **row)
+    emit("shard_spawns", gloo_2x2_s=gloo_s, nccl_1x1_s=nccl_s,
+         all_reduce_ms={"2x2 gloo": gloo[0]["all_reduce_ms"],
+                        "1x1 nccl": nccl[0]["all_reduce_ms"]},
+         gloo_solves_s=sum(r["wall_s"] for r in gloo[0]["cases"]),
+         gloo_start_s=max(r["entered"] for r in gloo) - spawned,
+         gloo_exit_s=returned - min(r["left"] for r in gloo))
+    return launches
+
+
+def _nccl_in_process(dev, cases):
+    """The cases on a 1x1 NCCL mesh joined by this process itself (a rank
+    spawned for it costs seconds to reach the card); the process group is
+    destroyed before returning.  [rank 0's _shard_rank result]."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpdlp_torch.shard import init_distributed
+    from tpdlp_torch.shard.launch import free_port
+
+    mesh = init_distributed(
+        "nccl", shape=(1, 1), init_method=f"tcp://localhost:{free_port()}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=600))
+    try:
+        return [_shard_rank(mesh, dev, cases)]
+    finally:
+        dist.destroy_process_group()
+
+
+def _as_result(r):
+    """The fields of a SolveResult that expected_launches and
+    _check_solution read, from a rank's result."""
+    from types import SimpleNamespace
+
+    from tpdlp_torch import Status
+
+    return SimpleNamespace(status=Status(r["status"]), iterations=r["k"])
+
+
+def harness_phase(dev, p_s, smi):
+    """The harnesses on the card: bench/runner.py on mittelmann-s
+    (RUNNER_SEEDS seeds after a warm solve each, best by iterations/s),
+    printed as one row of bench.py's schema; bench/roofline.py for dense,
+    band and block-ELL at mittelmann-s-class sizes (achieved GB/s and its
+    share of the H100's 3.35 TB/s, the card's name and power limit
+    beside).  (entry.dryrun_multichip runs in the shard phase.)"""
+    from tpdlp_torch.bench import roofline, runner
+
+    runs = [runner.run_ours(p_s, TOL, MAX_KKT, "float32", seed=s,
+                            device=dev) for s in range(RUNNER_SEEDS)]
+    best = runner._best(runs)
+    if any(r["status"] != "Solved" for r in runs):
+        raise AssertionError(f"runner: {[r['status'] for r in runs]}")
+    emit("runner", metric="mittelmann_s_pdhg_iterations_per_sec",
+         value=best["iters_per_sec"], unit="iter/s", vs_baseline=None,
+         platform="gpu", ours=best,
+         ours_iters_all=[r["iterations"] for r in runs],
+         ours_time_all=[r["time"] for r in runs], nvidia_smi=smi)
+    m, n = ROOFLINE_SHAPE
+    for fmt in ("dense", "band", "ell"):
+        r = roofline.run_roofline(m, n, ROOFLINE_ITERS, "float32", fmt=fmt,
+                                  density=0.01, device=dev)
+        emit("roofline", **r, peak_gbs=roofline.H100_PEAK_GBS,
+             fraction_of_peak=r["achieved_gbs"] / roofline.H100_PEAK_GBS,
+             nvidia_smi=smi)
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head):
     return {
         "name": name,
@@ -2438,6 +2728,9 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
     cold_s = next(r for r in out["dense_runs"]
                   if r["instance"] == p_s.name and r["seed"] == 0)
     phase("fishnet", fishnet_phase, dev, p_s, cold_s, oracle)
+    out["shard_launches"] = phase("shard", shard_phase, dev, p_s, p_b8,
+                                  cold_s, band_row)
+    phase("harness", harness_phase, dev, p_s, smi)
     emit("total", seconds=time.perf_counter() - t_start)
 
     print(json.dumps(_summary(out)), flush=True)
@@ -2469,6 +2762,7 @@ def _summary(out):
                          out["dense_launches"], dense_rows, dense_head),
          "launches_certificates": out["dense_certify"],
          "launches_refine": refine["launches"]["dense_matvec"],
+         "launches_shard_per_rank": out["shard_launches"]["dense_matvec"],
          "shape": list(HEADLINE_SHAPE),
          "k_aug": {"shape": list(KAUG_SHAPE), "ms": kaug["kernel_ms"],
                    "plain_ms": kaug["plain_ms"],
@@ -2481,6 +2775,7 @@ def _summary(out):
                          out["band_rows"], band_head),
          "launches_certificates": out["band_certify"],
          "launches_refine_band": refine_band["launches"]["band_matvec"],
+         "launches_shard_per_rank": out["shard_launches"]["band_matvec"],
          "csr_ms": band_head["csr_ms"], "shape": band_head["slabs"]},
         {**_kernel_entry("csr_matvec", "tpdlp_torch/csrc/csr_matvec.cu",
                          "tpdlp/ops/sparse.py:65",

@@ -2,10 +2,9 @@
 subprocess on the CPU, beside the JAX CLI on the same folder (the JAX
 package's tests/test_cli.py flow): the CSV schema without pandas, the
 JAX CLI's status, k and j per file under fixed steps, the "Failed to load"
-row, --presolve, --fishnet, --batch_solve and the escalation of a
-tolerance below escalation_tol against the JAX CLI, and the flag of the
-unported option (--mesh) refused before the sweep with its ROADMAP.md
-item."""
+row, --presolve, --fishnet, --batch_solve, --mesh (four gloo ranks
+under torchrun) and the escalation of a tolerance below escalation_tol
+against the JAX CLI."""
 
 import csv
 import os
@@ -22,12 +21,14 @@ HEADER = ["File", "Objective", "Iterations (k)", "Restarts (n)",
           "KKT Passes (j)", "Time (s)", "Status", "Sense"]
 
 
-def _run(module, args, cwd, device="cpu"):
+def _run(module, args, cwd, device="cpu", launcher=(), **env_extra):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra)
     return subprocess.run(
-        [sys.executable, "-m", module, "--device", device, *args],
+        [sys.executable, *launcher, "-m", module, "--device", device,
+         *args],
         capture_output=True, text=True, timeout=600, env=env, cwd=cwd,
     )
 
@@ -104,34 +105,41 @@ def test_cli_single_file_and_support_sparse(mps_folder, tmp_path):
 ])
 def test_unported_flags_exit_naming_their_item(mps_folder, tmp_path, flags,
                                                item):
-    """A flag of a ROADMAP.md item not ported yet (--mesh, item 21) exits
-    before the sweep naming its item.  The flags of ported items run
+    """The flags of the ROADMAP.md items that were once unported run
     against the JAX CLI on the same folder, rows for the same files and
     the broken file's "Failed to load" row, objectives to 1e-5: --presolve
     (item 18) with the JAX CLI's status, k, n and j per file under fixed
-    steps; --fishnet (19) and --batch_solve (20), whose random draws (the
-    fishnet's population, a distinct-K fleet's power-iteration starts)
-    are the port's own, with the JAX CLI's status, solved to 1e-8 so that
-    both objectives sit well inside 1e-5."""
+    steps; --fishnet (19), --batch_solve (20) and --mesh 2x2 (21), whose
+    random draws (the fishnet's population, a distinct-K fleet's or a
+    padded problem's power-iteration starts) are the port's own, with the
+    JAX CLI's status, solved to 1e-8 so that both objectives sit well
+    inside 1e-5.  --mesh 2x2 without a launcher exits before the sweep
+    saying how to launch; under torchrun its four gloo ranks sweep and
+    rank 0 writes the table, beside the JAX CLI on four virtual
+    devices."""
     out = tmp_path / "out"
-    run_flags = [*flags]
-    if item != 21:
-        run_flags += FIXED_FLAGS
-    if item in (19, 20):
+    run_flags = [*flags, *FIXED_FLAGS]
+    if item in (19, 20, 21):
         run_flags += ["--tolerance", "1e-8"]
-    r = _run("tpdlp_torch.cli.main",
-             ["--instance_path", str(mps_folder), *run_flags,
-              "--output_path", str(out)], str(tmp_path))
+    args = ["--instance_path", str(mps_folder), *run_flags,
+            "--output_path", str(out)]
+    jax_env = {}
     if item == 21:
+        r = _run("tpdlp_torch.cli.main", args, str(tmp_path))
         assert r.returncode != 0
-        assert f"item {item})" in r.stderr
+        assert "torchrun --nproc_per_node=4" in r.stderr
         assert not out.exists()
-        return
+        r = _run("tpdlp_torch.cli.main", args, str(tmp_path),
+                 launcher=("-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node=4"))
+        jax_env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    else:
+        r = _run("tpdlp_torch.cli.main", args, str(tmp_path))
     assert r.returncode == 0, r.stderr[-2000:]
     out_j = tmp_path / "jax"
     rj = _run("tpdlp.cli.main",
               ["--instance_path", str(mps_folder), *run_flags,
-               "--output_path", str(out_j)], str(tmp_path))
+               "--output_path", str(out_j)], str(tmp_path), **jax_env)
     assert rj.returncode == 0, rj.stderr[-2000:]
     _, rows_t = _read(out)
     _, rows_j = _read(out_j)

@@ -671,3 +671,105 @@ def test_element_fleet_on_card_matches_single_solves(card):
         assert (r.iterations, r.restarts, r.kkt_passes) == (
             s.iterations, s.restarts, s.kkt_passes)
         assert abs(r.objective - s.objective) <= 1e-9 * (1 + abs(s.objective))
+
+
+def _rank_partials(op_of, x, y, shape):
+    """Each rank's placed partial K x and K'y of a (R, C) mesh whose ranks
+    share this process (no process group: the all_reduce is the
+    identity), and the kernel launches of each."""
+    from tpdlp_torch.shard.mesh import Mesh
+
+    out = []
+    for rank in range(shape[0] * shape[1]):
+        op = op_of(Mesh(shape, rank))
+        before = dict(_kernels.launches)
+        out.append((op.mv(x), op.rmv(y),
+                    {k: v - before[k] for k, v in _kernels.launches.items()
+                     if v != before[k]}))
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["dense", "band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_operators_on_card_sum_to_the_products(card, fmt, dtype):
+    """The sharded layouts' kernels on the card: each rank's partial K x
+    and K'y (K1 on a 2D block whose slices of x and y start off 16-byte
+    alignment; K2 on a range of groups) sum to the whole operator's
+    products, one launch of the layout's kernel per product and rank."""
+    import scipy.sparse as sp
+
+    from tpdlp_torch.shard import mesh as TM
+    from tpdlp_torch.shard.ops import band_shard, dense_shard
+
+    if fmt == "dense":
+        p = tpdlp_torch.generate_feasible_lp(n=53, m_ineq=29, m_eq=10,
+                                             seed=11)
+        shape, pad, build, kernel = (2, 2), TM.padded_sizes, dense_shard, (
+            "dense_matvec")
+    else:
+        p = tpdlp_torch.generate_banded_lp(n=3000, m_ineq=1500, m_eq=700,
+                                           bandwidth=33, seed=9)
+        shape, pad, build, kernel = (1, 4), TM.padded_sizes_band, (
+            band_shard), "band_matvec"
+    m_pad, n_pad = pad(p.m, p.n, TM.Mesh(shape))
+    coo = sp.coo_matrix(p.K)
+    K = sp.coo_matrix((coo.data, (coo.row, coo.col)), shape=(m_pad, n_pad))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(n_pad, generator=g, dtype=torch.float64)
+    y = torch.randn(m_pad, generator=g, dtype=torch.float64)
+    parts = _rank_partials(lambda mesh: build(K, mesh, dtype, card),
+                           x.to(dtype=dtype, device=card),
+                           y.to(dtype=dtype, device=card), shape)
+    kx = sum(px.cpu().double() for px, _, _ in parts)
+    kty = sum(py.cpu().double() for _, py, _ in parts)
+    Kd = torch.as_tensor(K.toarray())
+    for got, want in ((kx, Kd @ x), (kty, Kd.T @ y)):
+        rel = float(((got - want).abs() / (1 + want.abs())).max())
+        assert rel < _tol(max(m_pad, n_pad), dtype), rel
+    assert all(launched == {kernel: 2} for _, _, launched in parts)
+
+
+def test_sharded_solves_on_card_over_gloo_and_nccl(card):
+    """Two gloo ranks sharing the card (a 1x2 mesh; NCCL refuses two ranks
+    on one card) and one NCCL rank: dense and band solves in fp32 reach
+    the unsharded card solve's status, the objective within 5 * tol, and
+    every rank launches its layout's kernel once per product all_reduce
+    (tests/torch_shard_ranks.py is each rank's side)."""
+    from torch_shard_ranks import run_cases
+    from tpdlp_torch.shard import run_ranks
+
+    tol = 1e-4
+    cfg = dict(tol=tol, scaling="ruiz", adaptive=True,
+               primal_weight_update=True)
+    problems = {
+        "dense": tpdlp_torch.generate_feasible_lp(n=757, m_ineq=280,
+                                                  m_eq=164, density=0.05,
+                                                  seed=1),
+        "band": tpdlp_torch.generate_banded_lp(n=3000, m_ineq=1500,
+                                               m_eq=700, bandwidth=33,
+                                               seed=9),
+    }
+    kernel = {"dense": "dense_matvec", "band": "band_matvec"}
+    cases = [{"kind": "solve", "shape": (1, 2), "problem": p, "cfg": cfg,
+              "solve": {"matrix_format": fmt, "dtype": torch.float32}}
+             for fmt, p in problems.items()]
+    runs = {
+        "gloo": run_ranks(run_cases, 2, backend="gloo", device=str(card),
+                          shape=(1, 2), args=(cases,), timeout=600),
+        "nccl": run_ranks(run_cases, 1, backend="nccl", device=[str(card)],
+                          shape=(1, 1),
+                          args=([dict(c, shape=(1, 1)) for c in cases],),
+                          timeout=600),
+    }
+    for i, (fmt, p) in enumerate(problems.items()):
+        single = tpdlp_torch.solve(p, tpdlp_torch.SolverConfig(**cfg),
+                                   dtype=torch.float32, device=card,
+                                   matrix_format=fmt)
+        assert single.status == tpdlp_torch.Status.SOLVED
+        for backend, per_rank in runs.items():
+            for r in (rank[i] for rank in per_rank):
+                assert r["status"] == int(single.status), (backend, fmt)
+                assert abs(r["objective"] - single.objective) <= 5 * tol * (
+                    1 + abs(single.objective)), (backend, fmt)
+                assert r["launches"][kernel[fmt]] == r["counts"]["product"]
+                assert r["counts"]["product"] > 2 * r["k"]

@@ -181,23 +181,37 @@ def test_result_surface_equals_jax(jax_b0):
     (dict(presolve="python"), 18),
     (dict(presolve="cpp", matrix_format="sparse"), 18),
     (dict(presolve="cpp"), 18),
-    (dict(mesh=object(), matrix_format="band"), 21),
-    (dict(mesh=object(), matrix_format="auto"), 21),
-    (dict(mesh=object()), 21),
+    (dict(mesh="1x1", matrix_format="band"), 21),
+    (dict(mesh="1x1", matrix_format="auto"), 21),
+    (dict(mesh="1x1"), 21),
 ])
 def test_unported_options_raise(jax_b0, kw, item):
-    """Options of a ROADMAP.md item not ported yet raise naming it; those
-    of a ported item (18, presolve) run and match the JAX package: the
-    same status, k, n and j and the objective to 1e-9 under fixed steps
-    in fp64."""
+    """The options of ROADMAP.md items that were once unported run and
+    match the JAX package: the same status, k, n and j and the objective
+    to 1e-9 under fixed steps in fp64.  Presolve (item 18), and
+    solve(mesh=...) (item 21) on a 1x1 mesh of each package, which pads
+    the problem as its layout says (band: to 1024 x 1024) and cuts the
+    results back (tests/test_torch_shard.py holds the multi-rank
+    meshes)."""
     p = _SUITE["afiro-class"]
-    if item == 18:
+    if item == 21:
+        from tpdlp.shard import make_solver_mesh as jax_mesh
+        from tpdlp_torch.shard import make_solver_mesh
+
+        kw = dict(kw)
+        del kw["mesh"]
+        rj = tpdlp.solve(p, tpdlp.SolverConfig(tol=1e-6, **FIXED),
+                         dtype=jnp.float64,
+                         mesh=jax_mesh(jax.devices()[:1], (1, 1)), **kw)
+        rt = tpdlp_torch.solve(p, tpdlp_torch.SolverConfig(tol=1e-6,
+                                                           **FIXED),
+                               device="cpu", dtype=torch.float64,
+                               mesh=make_solver_mesh(), **kw)
+        assert rt.x.shape == (p.n,) and rt.y.shape == (p.m,)
+    else:
         rj, rt = _both(p, tol=1e-6, solve_kw=kw, **FIXED)
-        assert rj.status == tpdlp.Status.SOLVED
-        _exact(rj, rt)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        tpdlp_torch.solve(p, device="cpu", **kw)
+    assert rj.status == tpdlp.Status.SOLVED
+    _exact(rj, rt)
 
 
 @pytest.mark.parametrize("kw", [

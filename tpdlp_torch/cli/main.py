@@ -19,8 +19,17 @@ CUDA (fp32) escalates as in the JAX CLI: iterative refinement by default.
 (tpdlp_torch/fishnet.py) on the scaled problem, through the layout the
 solve uses; `--batch_solve` solves a folder of several files as one fleet
 (`solve_batch`, restart_sync="global"), each row's time the batch's wall
-over its size.  The flag of an option the port does not run yet, --mesh,
-exits non-zero before the sweep and names its ROADMAP.md item (21).
+over its size.
+
+`--mesh RxC` solves each LP sharded over R*C ranks (tpdlp_torch/shard),
+launched by torchrun:
+
+    torchrun --nproc_per_node=4 -m tpdlp_torch.cli.main --mesh 2x2 ...
+
+Every rank sweeps the folder, and rank 0 writes the CSV.  The ranks join
+over NCCL with --device cuda (rank i on cuda:LOCAL_RANK) and over gloo
+with --device cpu.  A world size other than R*C exits non-zero saying how
+to launch; 1x1 runs without a launcher.
 """
 
 from __future__ import annotations
@@ -70,7 +79,8 @@ def parse_args(argv=None):
     p.add_argument("--dtype", type=str, default=None,
                    choices=[None, "float32", "float64"])
     p.add_argument("--mesh", type=str, default=None,
-                   help="RxC mesh for a sharded solve (not ported yet)")
+                   help="RxC mesh for a sharded solve, e.g. 2x2 (launch "
+                        "R*C ranks with torchrun)")
     p.add_argument("--presolve", type=str, default="off",
                    choices=["off", "python", "cpp"],
                    help="PaPILO-equivalent presolve/postsolve round trip")
@@ -91,15 +101,38 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _unported(args):
-    """The first flag naming an option the port does not run yet, as a
-    message with its ROADMAP.md item; None when there is none."""
-    flags = [(args.mesh, "--mesh", 21)]
-    for on, what, item in flags:
-        if on:
-            return (f"{what} is not ported to tpdlp_torch yet (ROADMAP.md "
-                    f"queue 1 item {item})")
-    return None
+def _mesh(spec: str, dev):
+    """(mesh, device) of --mesh RxC: the ranks torchrun launched (its
+    environment names them), joined over NCCL on CUDA (each rank its
+    LOCAL_RANK's card) and over gloo on the CPU; 1x1 needs no launcher.
+    Exits non-zero when the world size is not R*C."""
+    from tpdlp_torch.shard.mesh import (
+        init_distributed,
+        launch_hint,
+        make_solver_mesh,
+    )
+
+    try:
+        shape = tuple(int(v) for v in spec.lower().split("x"))
+        if len(shape) != 2 or min(shape) < 1:
+            raise ValueError(spec)
+    except ValueError:
+        raise SystemExit(f"--mesh {spec}: expected RxC, e.g. 2x2")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != shape[0] * shape[1]:
+        raise SystemExit(f"--mesh {spec} with {world} process(es): "
+                         + launch_hint(shape))
+    if "WORLD_SIZE" not in os.environ:
+        return make_solver_mesh(shape), dev
+    if dev.type == "cuda":
+        import torch
+
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    print(f"--mesh {spec}: rank {os.environ.get('RANK')} of {world} over "
+          f"{backend} on {dev}")
+    return init_distributed(backend, shape=shape), dev
 
 
 def _failed_row(name, msg):
@@ -184,15 +217,14 @@ def main(argv=None):
         abs_gap_termination=args.abs_gap_termination,
         verbose=args.verbose,
     )
-    msg = _unported(args)
-    if msg is not None:
-        raise SystemExit(msg)
-
     try:
         dev = resolve_device("cuda" if args.device == "auto"
                              else args.device)
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}")
+    mesh = None
+    if args.mesh:
+        mesh, dev = _mesh(args.mesh, dev)
     name = f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" \
         else ""
     print(f"tpdlp_torch device: {dev}{name}")
@@ -216,6 +248,7 @@ def main(argv=None):
         ("Infeasibility detection", args.infeasibility_detect),
         ("Fishnet", args.fishnet),
         ("Matrix format", matrix_format),
+        ("Mesh", args.mesh),
     ):
         print(f"{k}: {v}")
 
@@ -230,7 +263,8 @@ def main(argv=None):
         )
 
     results = []
-    if args.batch_solve and (args.fishnet or args.presolve != "off"):
+    if args.batch_solve and (args.fishnet or args.presolve != "off"
+                             or mesh):
         print("--batch_solve does not compose with --fishnet/--presolve/"
               "--mesh; falling back to the sequential sweep.")
         args.batch_solve = False
@@ -274,7 +308,7 @@ def main(argv=None):
                     print(f"Fishnet completed in {time_used:.4f}s")
             result = solve(problem, cfg, dtype=dtype, device=dev,
                            x0=x0, y0=y0, seed=args.seed,
-                           time_used=time_used,
+                           time_used=time_used, mesh=mesh,
                            matrix_format=matrix_format,
                            presolve=args.presolve)
             print(f"Solver uses {result.solve_time:.4f} seconds.")
@@ -284,6 +318,13 @@ def main(argv=None):
             print(f"Solver failed for {fname}. Error: {e}")
             results.append(_failed_row(fname, f"Solver failed: {e}"))
 
+    if mesh is not None:
+        if mesh.group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+        if mesh.rank != 0:
+            return 0  # rank 0 writes the table
     os.makedirs(args.output_path, exist_ok=True)
     if results:
         csv_path = os.path.join(args.output_path, "solver_results.csv")

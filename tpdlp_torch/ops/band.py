@@ -24,9 +24,11 @@ hands them a (B, n) batch, which takes one launch of the kernel's batch
 axis.  Left out of the port, on purpose:
 `mv_fast`/`rmv_fast` (`_fast_ok`, `_FAST_VMEM_BUDGET`) keep the TPU's slabs
 VMEM-resident through a rounding MXU dot; on the H100 an fp32 product is
-exact and `has_fast_products` stays False.  `use_pallas` exists for
-operators sharded over a mesh, which wait for the sharding item of
-ROADMAP.md.
+exact and `has_fast_products` stays False.  Under a mesh each rank runs
+the same kernel on its own range of groups (tpdlp_torch/shard/ops.py);
+the JAX package swaps Pallas for take+einsum there (`use_pallas`) only
+because GSPMD cannot partition a custom kernel, so that flag is left out
+too.
 """
 
 from __future__ import annotations
@@ -174,9 +176,14 @@ class BandMat:
         return self
 
 
-def _build_band(K: sp.coo_matrix, dtype, device, device_build: bool):
+def _build_band(K: sp.coo_matrix, dtype, device, device_build: bool,
+                groups=None):
     """One direction's BandMat on `device`; None when some group's span
     exceeds MAX_WINDOW.
+
+    `groups` = (g0, g1) builds only those groups of the layout (a rank's
+    strip under a mesh, tpdlp_torch/shard/ops.py): slabs (g1 - g0, R, WB),
+    their starts, and m = the rows they cover; None builds them all.
 
     `device_build=True` assembles the slabs on the device by a flat scatter
     of the COO triplets (index + value per nonzero shipped instead of the
@@ -192,18 +199,24 @@ def _build_band(K: sp.coo_matrix, dtype, device, device_build: bool):
     if lay is None:
         return None
     ngroups, WB, start = lay
-    grp = row // R
+    grp, data = row // R, K.data
+    if groups is not None:
+        g0, g1 = groups
+        keep = (grp >= g0) & (grp < g1)
+        row, col, data = row[keep] - g0 * R, col[keep], data[keep]
+        grp, start = grp[keep] - g0, start[g0:g1]
+        ngroups, m = g1 - g0, (g1 - g0) * R
     if device_build:
         flat = (grp * R + row % R) * WB + (col - start[grp])
         slabs = torch.zeros(ngroups * R * WB, dtype=dtype, device=device)
         slabs.scatter_add_(
             0, torch.as_tensor(flat, device=device),
-            torch.as_tensor(K.data, dtype=dtype, device=device),
+            torch.as_tensor(data, dtype=dtype, device=device),
         )
         slabs = slabs.reshape(ngroups, R, WB)
     else:
         host = np.zeros((ngroups, R, WB), dtype=np.float64)
-        np.add.at(host, (grp, row % R, col - start[grp]), K.data)
+        np.add.at(host, (grp, row % R, col - start[grp]), data)
         slabs = torch.as_tensor(host, dtype=dtype, device=device)
     starts = torch.as_tensor(start.astype(np.int32), device=device)
     return BandMat(slabs, starts, m, n)

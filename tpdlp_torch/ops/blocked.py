@@ -47,11 +47,15 @@ class _EllData:
     nnz: int
 
 
-def _build_ell(K: sp.coo_matrix) -> _EllData:
-    """Vectorised host-side layout build (no Python per-nnz loops)."""
+def _build_ell(K: sp.coo_matrix, strips=None, W=None) -> _EllData:
+    """Vectorised host-side layout build (no Python per-nnz loops).
+
+    `strips` and `W` override the strip count and the slot count: a rank's
+    strips under a mesh (tpdlp_torch/shard/ops.py), whose K holds only
+    their rows, keep the whole layout's W."""
     m, n = K.shape
     # Strip count rounded to a multiple of 8 (the JAX layout's).
-    mb = -(-(-(-m // BR)) // 8) * 8
+    mb = -(-(-(-m // BR)) // 8) * 8 if strips is None else strips
     row = K.row.astype(np.int64)
     col = K.col.astype(np.int64)
     rb = row // BR
@@ -70,7 +74,8 @@ def _build_ell(K: sp.coo_matrix) -> _EllData:
     counts = np.bincount(tile_rb, minlength=mb)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     slot[order] = np.arange(ntiles) - np.repeat(starts, counts)
-    W = max(1, int(counts.max()) if ntiles else 1)
+    if W is None:
+        W = max(1, int(counts.max()) if ntiles else 1)
 
     tiles = np.zeros((mb, W, BR, BC), dtype=np.float64)
     col_idx = np.zeros((mb, W), dtype=np.int32)

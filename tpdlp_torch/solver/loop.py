@@ -443,6 +443,24 @@ def make_live(pb, cfg: SolverConfig):
     raise ValueError(f"unknown step_scheme: {cfg.step_scheme!r}")
 
 
+def make_body(pb, cfg: SolverConfig):
+    """One PDHG iteration as a state transition (the JAX `make_body`): a
+    no-op once the status is terminal, and the restart check where the
+    iteration brings t to a multiple of `restart_period`, both as tensor
+    selects (the restart check's products are issued either way)."""
+    live = make_live(pb, cfg)
+    check = _restart_for(cfg)
+
+    def body(st: PDHGState) -> PDHGState:
+        running = st.status == _RUNNING
+        st = _select(running, live(st), st)
+        fire = (running & (st.t % cfg.restart_period == 0)
+                & (st.status == _RUNNING))
+        return _select(fire, check(pb, cfg, st), st)
+
+    return body
+
+
 def blocked_allowed(cfg: SolverConfig) -> bool:
     """True when the blocked loop is what the JAX package runs for `cfg`:
     no per-iteration certificate families, no forced per-iteration loop,

@@ -616,6 +616,14 @@ def solve_refined(problem, cfg: SolverConfig, *, solve_fn, **kw):
     kw.setdefault("op_cache", {})
     stages: list = []
 
+    def out_of_time() -> bool:
+        # Under a mesh every rank takes the same decision (ranks that
+        # disagreed would issue different inner solves).
+        from tpdlp_torch.shard.mesh import clock_spent
+
+        return clock_spent(time.perf_counter() - start + time_used,
+                           cfg.time_limit, kw.get("mesh"), kw.get("device"))
+
     def _inner(what, *a, **k):
         return run_stage(stages, what, solve_fn, *a, **k)
 
@@ -885,7 +893,7 @@ def solve_refined(problem, cfg: SolverConfig, *, solve_fn, **kw):
             # burning budget and report the best incumbent below.
             # (While boosts remain, a "stalled" dual is expected — the
             # next, bigger round is the designed response.)
-        if time.perf_counter() - start + time_used >= cfg.time_limit:
+        if out_of_time():
             _, xh, yh, res = best
             return _result(res, Status.TIME_LIMIT)
         kkt_left = cfg.max_kkt - j_total
@@ -1301,5 +1309,5 @@ def solve_refined(problem, cfg: SolverConfig, *, solve_fn, **kw):
             return _result(r_mix, Status.SOLVED)
     if best is not None and best[0] < _score(res):
         _, xh, yh, res = best
-    timed_out = time.perf_counter() - start + time_used >= cfg.time_limit
-    return _result(res, Status.TIME_LIMIT if timed_out else Status.KKT_LIMIT)
+    return _result(res, Status.TIME_LIMIT if out_of_time()
+                   else Status.KKT_LIMIT)

@@ -8,9 +8,14 @@ it; the host reads a few counters at most once per cycle and checks the
 wall clock between chunks of KKT passes, on the JAX package's chunk
 schedule (`chunk_kkt_init`, doubling up to `chunk_kkt_max`).  With a
 `checkpoint_path` the state is saved after every chunk, and `resume=True`
-continues from the saved state.  Options the port does not run yet raise
-`NotImplementedError` naming the ROADMAP.md item (queue 1) that brings
-them.
+continues from the saved state.
+
+`mesh=` (tpdlp_torch/shard) solves one LP sharded over the ranks of a
+torch.distributed group: the operator of the JAX package's mesh layout
+(dense 2D blocks, band or block-ELL flat strips), built on the host shard
+by shard, each rank's products over its own shard with one all_reduce
+each, every vector replicated; the result on every rank is the full x and
+y.
 
 With dtype=None on CUDA (fp32) and `tol` below `escalation_tol`, the solve
 escalates as the JAX package's does: `escalation_mode` "auto" and "refine"
@@ -23,8 +28,8 @@ Left out on purpose, as ROADMAP.md's precision rule says: the JAX
 package's guards for the TPU's rounding matrix unit (`_mxu_noisy`, the
 warning and the escalation reroute for sparse layouts below 1e-4) and for
 its emulated fp64 (`_f64_guard`, `_F64_DENSE_ELEM_LIMIT` and the fp64
-tail's sharded reroute).  On the H100 an fp32 product is exact in every
-layout and fp64 is native.
+tail's automatic reroute through a mesh).  On the H100 an fp32 product is
+exact in every layout and fp64 is native.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 
 from tpdlp_torch.config import SolverConfig, Status
 from tpdlp_torch.device import resolve_device
-from tpdlp_torch.ops.autotune import choose_operator
+from tpdlp_torch.ops.autotune import choose_operator, dense_candidate_allowed
 from tpdlp_torch.ops.band import BandOp
 from tpdlp_torch.ops.sparse import SparseOp
 from tpdlp_torch.problem import (
@@ -49,6 +54,7 @@ from tpdlp_torch.problem import (
     to_device_arrays,
 )
 from tpdlp_torch.scaling.ruiz import scale_problem
+from tpdlp_torch.shard import mesh as shard_mesh
 from tpdlp_torch.solver.checkpoint import load_state, npz_path, save_state
 from tpdlp_torch.solver.loop import final_eval, read_ints, run_chunk
 from tpdlp_torch.solver.power_iteration import spectral_norm_estimate
@@ -157,31 +163,65 @@ def build_device_operator(problem, dtype, matrix_format: str = "dense",
     return (op, *device_vectors(problem, dtype, dev))
 
 
-def _device_arrays(problem, dtype, dev, op_cache, matrix_format):
+def _device_arrays(problem, dtype, dev, op_cache, matrix_format,
+                   mesh=None):
     """(op, c, q, l, u) on the device; the operator comes from `op_cache`
-    when it holds one for this layout, dtype, device and K's shape."""
+    when it holds one for this layout, dtype, device and K's shape (and
+    mesh shape, under a mesh)."""
     key = (matrix_format, str(dtype), str(dev), problem.K.shape)
+    if mesh is not None:
+        key += (mesh.shape,)
     if op_cache is not None and key in op_cache:
         return (op_cache[key], *device_vectors(problem, dtype, dev))
-    op, c, q, l, u = build_device_operator(problem, dtype, matrix_format,
-                                           dev)
+    if mesh is None:
+        op, c, q, l, u = build_device_operator(problem, dtype,
+                                               matrix_format, dev)
+    else:
+        from tpdlp_torch.shard.ops import build_shard
+
+        op = build_shard(problem.K, matrix_format, mesh, dtype, dev)
+        c, q, l, u = device_vectors(problem, dtype, dev)
     if op_cache is not None:
         op_cache[key] = op
     return op, c, q, l, u
 
 
-def _prepare(problem, dtype, dev, op_cache, matrix_format, ineq_mask, seed,
-             x0, y0, om0, cfg: SolverConfig):
-    """Device arrays, scaling, problem assembly, power-iteration stepsize,
-    primal weight and state init.  Returns (pb, state, t_arrays), the last
-    the perf_counter time at which the arrays were on the device.
+def mesh_layout(matrix_format: str, m: int, n: int, dtype) -> str:
+    """The sharded layout `matrix_format` names under a mesh: "dense" (2D
+    blocks), "band" or "sparse" (block-ELL, flat strips); "auto" is dense
+    while the dense matrix fits the autotune's budget, block-ELL beyond it
+    (the JAX package's rule)."""
+    if matrix_format == "auto":
+        return "dense" if dense_candidate_allowed(m, n, dtype) else "sparse"
+    return matrix_format
 
-    The unscaled operator lives only in this frame (and in `op_cache`), so
-    it is freed once scaled, before the power iteration builds K': the
-    device holds at most two copies of K at any time."""
-    op, c, q, l, u = _device_arrays(problem, dtype, dev, op_cache,
-                                    matrix_format)
-    t_arrays = time.perf_counter()
+
+def _padded_problem(problem, mesh, layout: str):
+    """The mesh-padded problem of `layout` (K's triplets and the vectors,
+    padded as `shard.mesh.pad_vectors` says) and its inequality mask."""
+    import types
+
+    import scipy.sparse as sp
+
+    m, n = problem.m, problem.n
+    sizes = {"dense": shard_mesh.padded_sizes,
+             "band": shard_mesh.padded_sizes_band,
+             "sparse": shard_mesh.padded_sizes_sparse}[layout]
+    m_pad, n_pad = sizes(m, n, mesh)
+    K = problem.K
+    coo = K.tocoo() if sp.issparse(K) else sp.coo_matrix(np.asarray(K))
+    K_p = sp.coo_matrix((coo.data, (coo.row, coo.col)), shape=(m_pad, n_pad))
+    c, q, l, u, mask = shard_mesh.pad_vectors(
+        *(np.asarray(v, np.float64) for v in (problem.c, problem.q,
+                                              problem.l, problem.u)),
+        np.arange(m) < problem.m_ineq, m_pad, n_pad)
+    return types.SimpleNamespace(K=K_p, c=c, q=q, l=l, u=u), mask
+
+
+def build_device_problem(op, c, q, l, u, ineq_mask, cfg: SolverConfig):
+    """Scale (K, c, q, l, u) by `cfg.scaling` and assemble the
+    DeviceProblem (the JAX `_build_device_problem`).  `op` is scaled on a
+    copy (Ruiz never touches the caller's operator)."""
     op_s, c_s, q_s, l_s, u_s, d_row, d_col = scale_problem(
         op, c, q, l, u,
         method=cfg.scaling,
@@ -189,36 +229,81 @@ def _prepare(problem, dtype, dev, op_cache, matrix_format, ineq_mask, seed,
         ruiz_eps=cfg.ruiz_eps,
         pc_alpha=cfg.pock_chambolle_alpha,
     )
-    del op
     if cfg.scaling == "none":
-        pb = device_problem(
+        return device_problem(
             op_s, c_s, q_s, l_s, u_s, 0, ineq_mask=ineq_mask,
             compat_scaled_norms=cfg.compat_scaled_norms,
         )
-    else:
-        pb = device_problem(
-            op_s, c_s, q_s, l_s, u_s, 0,
-            d_row=d_row, d_col=d_col, c0=c, q0=q, l0=l, u0=u,
-            ineq_mask=ineq_mask,
-            compat_scaled_norms=cfg.compat_scaled_norms,
-        )
+    return device_problem(
+        op_s, c_s, q_s, l_s, u_s, 0,
+        d_row=d_row, d_col=d_col, c0=c, q0=q, l0=l, u0=u,
+        ineq_mask=ineq_mask,
+        compat_scaled_norms=cfg.compat_scaled_norms,
+    )
+
+
+def _layout_of(problem, mesh, matrix_format, dtype, dev):
+    """(the problem the device arrays come from, its layout, its
+    inequality mask on `dev`): the problem itself, or under a mesh its
+    padded form and the sharded layout `matrix_format` names."""
+    if mesh is None:
+        return (problem, matrix_format,
+                torch.arange(problem.m, device=dev) < problem.m_ineq)
+    layout = mesh_layout(matrix_format, problem.m, problem.n, dtype)
+    padded, mask = _padded_problem(problem, mesh, layout)
+    return padded, layout, torch.as_tensor(mask, device=dev)
+
+
+def prepare(problem, cfg: SolverConfig, *, dtype, device=None, mesh=None,
+            matrix_format: str = "dense", seed: int = 0):
+    """(pb, state): a solve's preprocessing (the operator of the layout,
+    scaling, the power-iteration stepsize, the initial state), from which
+    the harnesses time chunks of `solver/loop.py::run_chunk`.  Under a
+    mesh every vector has its padded length."""
+    dev = resolve_device(device)
+    arrays_of, layout, mask = _layout_of(as_problem(problem), mesh,
+                                         matrix_format, dtype, dev)
+    om0 = torch.tensor(np.nan, dtype=dtype, device=dev)
+    pb, st, _ = _prepare(
+        lambda: _device_arrays(arrays_of, dtype, dev, None, layout, mesh),
+        mask, seed, None, None, om0, cfg)
+    return pb, st
+
+
+def _prepare(arrays, ineq_mask, seed, x0, y0, om0, cfg: SolverConfig):
+    """Device arrays (from `arrays()`), scaling, problem assembly,
+    power-iteration stepsize, primal weight and state init.  Returns (pb,
+    state, t_arrays), the last the perf_counter time at which the arrays
+    were on the device.
+
+    The unscaled operator lives only in this frame (and in `op_cache`), so
+    it is freed once scaled, before the power iteration builds K': the
+    device holds at most two copies of K at any time."""
+    op, c, q, l, u = arrays()
+    t_arrays = time.perf_counter()
+    pb = build_device_problem(op, c, q, l, u, ineq_mask, cfg)
+    del op
     eta0, omega0 = eta_omega_of(pb, seed, cfg, om0)
     # Warm starts arrive in the original frame; the loop iterates in the
     # scaled one (x = d_col * x_s).
     if x0 is not None:
-        x0 = x0 / d_col
+        x0 = x0 / pb.d_col
     if y0 is not None:
-        y0 = y0 / d_row
+        y0 = y0 / pb.d_row
     return pb, init_state(pb, eta0, omega0, x0, y0), t_arrays
 
 
-def _resumed_state(path, pb, cfg: SolverConfig, dtype, dev):
+def _resumed_state(path, pb, cfg: SolverConfig, dtype, dev, mesh, st):
     """The checkpointed state on the device, its anchor products
     recomputed from the operator (they must equal K x_restart and
     K'y_restart; older checkpoints lack them).  Under Halpern the
     restart baseline is zeroed, so the criterion re-baselines at the next
-    restart, as the JAX package does."""
-    st = load_state(path, dtype=dtype, device=dev)
+    restart, as the JAX package does.  Under a mesh rank 0 reads the file
+    and broadcasts the state into the shapes of `st`."""
+    if mesh is None or mesh.rank == 0:
+        st = load_state(path, dtype=dtype, device=dev)
+    if mesh is not None:
+        st = shard_mesh.shard_state(st, mesh)
     st = st.replace(kx_restart=pb.op.mv(st.x_restart),
                     kty_restart=pb.op.rmv(st.y_restart))
     if cfg.step_scheme == "halpern":
@@ -241,16 +326,7 @@ def _extract(pb, st, use_prev: bool = False):
 MATRIX_FORMATS = ("dense", "sparse", "band", "auto")
 
 
-def _unported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to tpdlp_torch yet (ROADMAP.md queue 1 "
-        f"item {item})"
-    )
-
-
-def _check_ported(mesh, matrix_format, presolve):
-    if mesh is not None:
-        raise _unported("solve(mesh=...)", 21)
+def _check_options(matrix_format, presolve):
     if matrix_format not in MATRIX_FORMATS:
         raise ValueError(f"unknown matrix_format: {matrix_format!r}")
     if presolve not in ("off", "python", "cpp"):
@@ -438,7 +514,7 @@ def solve(
     cfg = config
     problem = as_problem(problem)
     problem.validate()
-    _check_ported(mesh, matrix_format, presolve)
+    _check_options(matrix_format, presolve)
     dev = resolve_device(device)
 
     if presolve != "off":
@@ -486,33 +562,50 @@ def solve(
     dtype = _as_dtype(dtype)
 
     m, n = problem.m, problem.n
-    mask = torch.arange(m, device=dev) < problem.m_ineq
+    # Under a mesh every vector below has its padded length; the results
+    # are cut back to (n,) and (m,).
+    arrays_of, layout, mask = _layout_of(problem, mesh, matrix_format,
+                                         dtype, dev)
+    n_op, m_op = len(arrays_of.c), len(arrays_of.q)
     om0 = torch.tensor(np.nan if omega0 is None else float(omega0),
                        dtype=dtype, device=dev)
     x0t = y0t = None
     if x0 is not None or y0 is not None:
-        x0t = torch.as_tensor(
-            np.array(x0) if x0 is not None else np.zeros(n),
-            dtype=dtype, device=dev)
-        y0t = torch.as_tensor(
-            np.array(y0) if y0 is not None else np.zeros(m),
-            dtype=dtype, device=dev)
+        # Zeros where a point is not given, and in the padding.
+        x0t, y0t = (torch.zeros(size, dtype=dtype, device=dev)
+                    for size in (n_op, m_op))
+        if x0 is not None:
+            x0t[:n] = torch.as_tensor(np.array(x0), dtype=dtype)
+        if y0 is not None:
+            y0t[:m] = torch.as_tensor(np.array(y0), dtype=dtype)
+        if mesh is not None:
+            # Every rank starts from rank 0's point (a warm start computed
+            # per rank, such as the fishnet's, may differ between them).
+            mesh.broadcast(x0t)
+            mesh.broadcast(y0t)
 
-    pb, st, t_arrays = _prepare(problem, dtype, dev, op_cache,
-                                matrix_format, mask, seed, x0t, y0t, om0,
-                                cfg)
+    pb, st, t_arrays = _prepare(
+        lambda: _device_arrays(arrays_of, dtype, dev, op_cache, layout,
+                               mesh),
+        mask, seed, x0t, y0t, om0, cfg)
     will_resume = bool(resume and checkpoint_path
                        and os.path.exists(npz_path(checkpoint_path)))
+    if mesh is not None:  # rank 0's file decides
+        will_resume = mesh.agree(will_resume and mesh.rank == 0, dev)
     if will_resume:
-        st = _resumed_state(checkpoint_path, pb, cfg, dtype, dev)
+        st = _resumed_state(checkpoint_path, pb, cfg, dtype, dev, mesh, st)
     # Never run a chunk when the wall clock was spent by the time the
     # arrays reached the device (where the JAX package checks it).
-    budget_spent = t_arrays - start + time_used >= cfg.time_limit
+    budget_spent = shard_mesh.clock_spent(t_arrays - start + time_used,
+                                          cfg.time_limit, mesh, dev)
 
     history = [] if log_history else None
+    # Under a mesh every rank holds the same state; rank 0 writes it.
+    writes = checkpoint_path is not None and (mesh is None
+                                              or mesh.rank == 0)
 
     def probe(st):
-        if checkpoint_path is not None:
+        if writes:
             save_state(st, checkpoint_path)
         if history is None and not cfg.verbose:
             return read_ints(st.j, st.status)
@@ -556,7 +649,8 @@ def solve(
 
     timed_out = False
     while status_now == int(Status.RUNNING) and j_done < cfg.max_kkt:
-        if time.perf_counter() - start + time_used >= cfg.time_limit:
+        if shard_mesh.clock_spent(time.perf_counter() - start + time_used,
+                                  cfg.time_limit, mesh, dev):
             timed_out = True
             break
         planned = min(cfg.max_kkt, planned + chunk)
@@ -576,8 +670,9 @@ def solve(
         st = final_eval(st, pb, cfg)
 
     x, y, obj = _extract(pb, st, use_prev=cfg.step_scheme == "halpern")
-    vec = torch.cat([x, y, torch.stack([obj, st.primal_res, st.dual_res,
-                                        st.gap])]).cpu().numpy()
+    vec = torch.cat([x[:n], y[:m], torch.stack([obj, st.primal_res,
+                                                st.dual_res, st.gap])]
+                    ).cpu().numpy()
     j_v, st_v, k_v, n_v = read_ints(st.j, st.status, st.k, st.n_restarts)
     if st_v != int(Status.RUNNING):
         status = Status(st_v)
