@@ -17,7 +17,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              cold — median of 25 single launches, each after a read-only
                     pass over a 256 MB buffer written once, so that L2
                     holds only clean lines and no write-back of an earlier
-                    launch lands inside the timed window;
+                    launch lands inside the timed window, and queued
+                    behind a short spin of the card, so that the host's
+                    time to issue it stays out of the window;
              loop — K and K' launched back to back, alternating, as a PDHG
                     iteration issues them, between two events, over the
                     launch count; the launches are queued behind a spin
@@ -35,6 +37,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              fp64) and of the sparse-1M instance (fp32), beside cuSPARSE's
              product of the same tensors (torch.mv), whose two repeats are
              also compared bit for bit.
+             batch_kernels: each kernel's batch axis at the fleets' shapes
+             (and mittelmann-s x 8 on the shared-K kernel), every element
+             bit for bit a single launch, the same times and yardsticks.
 4. solve   — the dense path: mittelmann-s and mittelmann-l at full size in
              fp32, tol 1e-4, Ruiz + adaptive steps + primal-weight update
              (the settings of the JAX package's bench runner); one warm-up
@@ -206,6 +211,9 @@ HEADLINE_SHAPE = (2000, 5000)
 KAUG_SHAPE = (2000, 6500)
 FP64_SHAPE = (2000, 5000)
 TIMED_LAUNCHES = 25
+#: Card cycles (0.2 ms at 1.98 GHz) each cold launch waits behind after
+#: the eviction; see cold_samples.
+COLD_SPIN_CYCLES = 400_000
 #: K/K' pairs per loop timing (2 launches each).
 LOOP_PAIRS = 50
 #: Cycles the card spins before a loop timing (about 10 ms at 2 GHz, above
@@ -314,6 +322,10 @@ FLEET_SPARSE = 8
 #: The batched kernels' rows: the afiro fleet's K and K' at a ragged
 #: B = 37 as well as at 10,000.
 RAGGED_B = 37
+#: ... and mittelmann-s x 8, bench/fleet.py --instance mittelmann-s's
+#: shared-K fleet at a batch of 8: the shared-K kernel with rows streamed
+#: in chunks, where K (40 MB) is read once for the 8 elements.
+SHARED_MS_B = 8
 #: The shard phase: the banded 100k instance on four ranks for this many
 #: KKT passes (the per-rank memory is what it shows); ranks share the card
 #: under gloo (NCCL refuses two ranks on one card), and a 1x1 mesh drives
@@ -426,6 +438,15 @@ def time_launches(fn, flush: torch.Tensor, dirty: bool = False) -> float:
     by a read-only pass (`dirty`: by a 256 MB write instead, which leaves
     up to an L2 of dirty lines to be written back inside the timed
     window)."""
+    return statistics.median(cold_samples(fn, flush, dirty))
+
+
+def cold_samples(fn, flush: torch.Tensor, dirty: bool = False) -> list:
+    """The ms of each of time_launches' launches.  Each is queued behind a
+    spin of COLD_SPIN_CYCLES after the eviction, so that the host's own
+    time to issue the launch (a Python wrapper's, which a slow moment of
+    the host can stretch past the eviction) stays out of the window; the
+    spin touches no memory, so L2 stays as the eviction left it."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -434,6 +455,7 @@ def time_launches(fn, flush: torch.Tensor, dirty: bool = False) -> float:
             flush.zero_()
         else:
             evict_l2(flush)
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -441,7 +463,7 @@ def time_launches(fn, flush: torch.Tensor, dirty: bool = False) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
 
 
 def time_loop(fn_k, fn_kt) -> float:
@@ -1878,12 +1900,15 @@ def fleet_instances(p_l):
 
 def _batch_dense_side(M, B):
     """One direction of a dense batch case: M (m, n) shared or
-    (B, m, n) stacked."""
+    (B, m, n) stacked (a shared K's row also names the shared-K kernel's
+    plan)."""
     from tpdlp_torch.ops import _kernels as K
 
     stacked = M.dim() == 3
     m, n = M.shape[-2:]
-    return dict(
+    plan = None if stacked else K.shared_plan(
+        m, n, B, M.element_size(), K._sm_count(M.device))._asdict()
+    return dict(plan=plan,
         cols=n, inner=n, kernel="dense_matvec",
         batch=lambda X: K.dense_matvec_batch(M, X),
         single=lambda b, x: K.dense_matvec(M[b] if stacked else M, x),
@@ -1941,13 +1966,16 @@ def _batch_csr_side(mat, B):
         flops=2 * B * nnz, shape=[rows, cols], nnz=nnz)
 
 
-def batch_kernels_phase(dev, rates, fleets):
+def batch_kernels_phase(dev, rates, fleets, p_s):
     """Each kernel's batch axis at this slice's shapes (the fleets' K and
-    K'): against its twin (error, bit-identical repeats), every element
-    bit for bit a single launch on it, cold and loop times by CUDA events
-    beside the twin and the one PyTorch call that computes the same
-    function (torch.bmm for a stack, K @ X' for a shared dense or CSR K),
-    and the bound (a shared K's bytes counted once)."""
+    K', and mittelmann-s x SHARED_MS_B): against its twin (error,
+    bit-identical repeats), every element bit for bit a single launch on
+    it, cold and loop times by CUDA events beside the twin and the one
+    PyTorch call that computes the same function (torch.bmm for a stack,
+    K @ X' for a shared dense or CSR K), and the bound (a shared K's bytes
+    counted once).  A shared dense K's row names its plan; the
+    mittelmann-s rows also time one single launch (`single_ms`): reading
+    K once, the batch should take less than two."""
     from tpdlp_torch.batch.stacked import (
         StackedDenseOp,
         band_stack,
@@ -1973,7 +2001,8 @@ def batch_kernels_phase(dev, rates, fleets):
             ("afiro-class shared", afiro, FLEET_AFIRO, torch.float32),
             ("afiro-class shared, ragged", afiro, RAGGED_B, torch.float32),
             ("deg2-class shared", deg2, FLEET_DEG2, torch.float32),
-            ("deg2-class shared", deg2, FLEET_DEG2, torch.float64)):
+            ("deg2-class shared", deg2, FLEET_DEG2, torch.float64),
+            ("mittelmann-s shared", p_s, SHARED_MS_B, torch.float32)):
         fwd, bwd = dense_shared(p, dtype)
         cases.append((label, B, dtype, _batch_dense_side(fwd, B),
                       _batch_dense_side(bwd, B)))
@@ -2021,11 +2050,14 @@ def batch_kernels_phase(dev, rates, fleets):
                                      " differs from its single launch")
             bound, bound_by = _bound(c["bytes"], c["flops"], rates, dtype)
             lib = c["library"](X)
+            cold = cold_samples(lambda: c["batch"](X), flush)
+            q1, _, q3 = statistics.quantiles(cold, n=4)
             row = {
                 "kernel": name, "case": f"{label} {side}", "batch": B,
                 "shape": c["shape"],
                 "dtype": str(dtype).replace("torch.", ""),
-                "kernel_ms": time_launches(lambda: c["batch"](X), flush),
+                "kernel_ms": statistics.median(cold),
+                "kernel_ms_quartiles": [q1, q3],
                 "plain_ms": time_launches(lambda: c["plain"](X), flush),
                 "library_ms": time_launches(lib, flush),
                 "single_launches_ms": time_launches(
@@ -2039,6 +2071,12 @@ def batch_kernels_phase(dev, rates, fleets):
             }
             if "nnz" in c:
                 row["nnz"] = c["nnz"]
+            if c.get("plan"):
+                row["plan"] = c["plan"]
+            if label.startswith("mittelmann-s"):
+                row["single_ms"] = time_launches(
+                    lambda: c["single"](0, xs[0]), flush)
+                row["over_single"] = row["kernel_ms"] / row["single_ms"]
             row["bound_share"] = bound / row["kernel_ms"]
             emit("kernels", **row)
             rows.append(row)
@@ -2692,7 +2730,7 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
     out["csr_rows"] = phase("csr_kernels", csr_kernels_phase, dev, rates,
                             p_l, p_1m)
     out["batch_rows"] = phase("batch_kernels", batch_kernels_phase, dev,
-                              rates, fleets)
+                              rates, fleets, p_s)
     oracles = {"refine": highs.submit(highs_objective, p_s),
                "refine_band": highs.submit(highs_objective, p_b8)}
     out["dense_runs"], out["dense_launches"] = phase("solve", solve_phase,
@@ -2812,13 +2850,26 @@ def _batch_entries(rows, launches):
         mine = [r for r in rows if r["kernel"] == name]
         head = next(r for r in mine if r["case"] == case
                     and r["dtype"] == "float32")
-        out.append({
+        entry = {
             **_kernel_entry(name, source, replaces, launches[kernel], mine,
                             head),
             "case": case, "batch": head["batch"], "shape": head["shape"],
             "single_launches_ms": head["single_launches_ms"],
-        })
+        }
+        if kernel == "dense_matvec":
+            entry["shared_k"] = _SHARED_K_NOTE
+            entry["plan"] = head["plan"]
+            entry["library_factor"] = head["kernel_ms"] / head["library_ms"]
+        out.append(entry)
     return out
+
+
+#: The dense batch entry's note on its two kernels (csrc/dense_matvec.cu).
+_SHARED_K_NOTE = (
+    "a shared K (stride 0): dense_matvec_shared_kernel, a block a tile of "
+    "K rows x elements, units of 4 x 4 outputs with G lanes each; rows of "
+    "at most 4 KB whole in one stage, longer rows in 2 KB chunks through "
+    "a two-stage ring; a stack: the persistent (element, tile) walk")
 
 
 if __name__ == "__main__":

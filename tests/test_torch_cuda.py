@@ -531,7 +531,13 @@ def _per_element(fn_batch, fn_single, X, name, twin):
     # A single launch takes a 16-byte-aligned x: each element's own copy.
     singles = torch.stack([fn_single(X[b].clone())
                            for b in range(X.shape[0])])
-    assert torch.equal(Y, singles)
+    assert torch.equal(_bits(Y), _bits(singles))
+
+
+def _bits(t):
+    """The tensor's bits, so that -0.0 and +0.0 (or NaN payloads) count as
+    different."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -562,6 +568,72 @@ def test_dense_batch_kernel_equals_single_launches_on_card(card, dtype):
         ref = _kernels.dense_matvec_batch_plain(S, X)
         assert float(((Y - ref).abs() / (1 + ref.abs())).max()) < _tol(
             n, dtype)
+
+
+def _nan_padded(rows, cols, gen, dtype, card):
+    """A (rows, cols) view of a matrix whose row stride (cols rounded up to
+    4, plus 4) holds NaN past cols: the kernel may copy it, never use it."""
+    ld = -(-cols // 4) * 4 + 4
+    full = torch.full((rows, ld), float("nan"), dtype=dtype, device=card)
+    full[:, :cols] = torch.randn((rows, cols), generator=gen, dtype=dtype,
+                                 device=card)
+    return full[:, :cols]
+
+
+@pytest.mark.parametrize("case", ["deg2", "long", "tails", "ragged",
+                                  "zero-row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_shared_batch_kernel_equals_single_launches_on_card(card, dtype,
+                                                            case):
+    """The shared-K kernel (stride_m == 0) in both of its regimes: deg2's K
+    and K' (whole rows, and fp64 K's rows streamed in chunks), rows longer
+    than a stage (300 x 2500, 300 x 1300), cols % 4 of 1, 2 and 3 in whole
+    and streamed rows (X also a view at a row stride of cols + 5), B = 1
+    and B and rows off the plan's tiles, NaN in K's row padding, and a K
+    row of zeros against x of both signs (the sign of a zero sum is the
+    single launch's).  Every element bit for bit a single launch, one
+    launch a call."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(15)
+    mats = []
+    if case == "deg2":
+        (p,) = build_suite(("medium",), names=("deg2-class",))
+        op = ExactDenseOp.build(torch.as_tensor(p.K.toarray(), dtype=dtype,
+                                                device=card))
+        mats = [(M, B) for M in (op.mat, op.bwd[:, : op.m])
+                for B in (1, 5, 64)]
+    elif case == "long":
+        mats = [(_nan_padded(300, n, gen, dtype, card), B)
+                for n in (2500, 1300) for B in (1, 3, 8, 9)]
+    elif case == "tails":
+        mats = [(_nan_padded(33, n, gen, dtype, card), 7)
+                for n in (101, 102, 103, 1297, 1298, 1299)]
+    elif case == "ragged":
+        mats = [(_nan_padded(m, 60, gen, dtype, card), B)
+                for m in (1, 5, 301, 2001) for B in (1, 13)]
+    else:
+        M = _nan_padded(37, 51, gen, dtype, card)
+        M[[0, 2, 17, 36]] = 0.0
+        mats = [(M, 37), (_nan_padded(40, 1500, gen, dtype, card), 9)]
+        mats[1][0][[1, 39]] = 0.0
+    for M, B in mats:
+        X = torch.randn((B, M.shape[1]), generator=gen, dtype=dtype,
+                        device=card)
+        _per_element(lambda X: _kernels.dense_matvec_batch(M, X),
+                     lambda x: dense_matvec(M, x), X, "dense_matvec",
+                     lambda X: _kernels.dense_matvec_batch_plain(M, X))
+        if case == "tails":
+            # X a view whose row stride (cols + 5) is no multiple of 4.
+            Xs = torch.randn((B, M.shape[1] + 5), generator=gen,
+                             dtype=dtype, device=card)[:, : M.shape[1]]
+            _per_element(lambda X: _kernels.dense_matvec_batch(M, X),
+                         lambda x: dense_matvec(M, x), Xs, "dense_matvec",
+                         lambda X: _kernels.dense_matvec_batch_plain(M, X))
+        if case == "zero-row":
+            Y = _kernels.dense_matvec_batch(M, X)
+            zero = (M == 0).all(dim=1)
+            assert torch.equal(_bits(Y[:, zero]),
+                               _bits(torch.zeros_like(Y[:, zero])))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -608,8 +680,9 @@ def test_band_batch_kernel_equals_single_launches_on_card(card, dtype):
 def test_batch_kernels_take_an_offset_view_of_x_on_card(card, dtype):
     """X a view that starts one element into its buffer, its rows a
     multiple of ROW_ALIGN long (so no padding copy is made): K1's vector
-    loads and K2's bulk copies of x still see 16-byte-aligned rows, and
-    the result is that of an aligned copy, bit for bit."""
+    loads (a stack), the shared-K kernel's and K2's bulk copies of x still
+    see 16-byte-aligned rows, and the result is that of an aligned copy,
+    bit for bit."""
     gen = torch.Generator(device=card)
     gen.manual_seed(14)
     p = tpdlp_torch.generate_banded_lp(n=2048, m_ineq=1024, m_eq=512,
@@ -620,6 +693,7 @@ def test_batch_kernels_take_an_offset_view_of_x_on_card(card, dtype):
                              device=card)).view(B, m, -1)[:, :, :n]
     for cols, fn in (
             (n, lambda X: _kernels.dense_matvec_batch(S, X)),
+            (n, lambda X: _kernels.dense_matvec_batch(S[0], X)),
             (band.n, lambda X: _kernels.band_matvec_batch(
                 band.slabs, band.starts, X, band.m, band.n))):
         assert cols % _kernels.ROW_ALIGN == 0

@@ -39,14 +39,58 @@
 // The batch axis (tpdlp_torch/batch: a fleet of LPs solved together, where
 // the JAX package vmaps ExactDenseOp.mv/rmv and pallas_call's batching rule
 // runs K1 over a batch grid axis).  One launch computes Y[b] = M_b X[b] for
-// b < batch, with M_b = M + b * stride_m (0: one K shared by the fleet;
-// rows * ld: a stack of distinct K), X[b] = x + b * ldx and
-// Y[b] = y + b * ldy.  The persistent loop walks (element, tile) pairs,
-// t = b * tiles + tile, so a row's reduction is exactly the single launch's
-// and element b's bits never depend on the batch size, on b or on the grid.
-// A shared K is re-read per element (from L2 where it fits); reading it once
-// for a tile of right-hand sides is later work.  batch = 1 with zero
-// strides is the single-vector launch.
+// b < batch, with M_b = M + b * stride_m, X[b] = x + b * ldx and
+// Y[b] = y + b * ldy, in one of two kernels picked by stride_m alone.
+//
+// A stack of distinct K (stride_m != 0) takes the kernel above: its
+// persistent loop walks (element, tile) pairs, t = b * tiles + tile, so a
+// row's reduction is exactly the single launch's.
+//
+// One K shared by the fleet (stride_m == 0) takes dense_matvec_shared_kernel
+// below, which reads K once for a tile of right-hand sides.
+// - Bound: a shared K is read once, X once, Y written once; 2 * batch *
+//   rows * cols flops.  A fleet's K is small (afiro-class 27 x 51: 5.6 KB;
+//   deg2-class 444 x 757: 1.3 MB) and its X large (10,000 x 52 fp32: 2 MB),
+//   so the bound is bytes for a short row and fp32 FMAs for a long one:
+//   0.9 us at afiro x 10,000, 0.6 us at deg2 x 64, 12 us (K's 40 MB) at
+//   mittelmann-s x 8.  An element's work is tiny, so latency is what
+//   costs: the design reads K once for many elements and keeps many
+//   independent sums in flight, not one element's rows after another's.
+// - Design.  A block owns a tile of RB rows x EB elements (a grid of row
+//   blocks x element blocks, not persistent) and reads the tile's K rows
+//   and X rows into shared memory once: K is read once per element block,
+//   X once per row block.  One producer warp bulk-copies K's rows
+//   (cp.async.bulk; one copy where they lie back to back) while the
+//   consumer warps load X's rows themselves element by element (cp.async),
+//   at any row stride and alignment, so a fleet's (B, n) x goes in as it
+//   is (no padded copy, no second kernel).  Rows of at most kWholeRowBytes
+//   sit whole in one stage; longer rows stream in parts of `chunk` bytes
+//   through a two-stage ring (mbarriers for K, barriers of the consumer
+//   warps for X), one tile of 8 units per block.
+// - The work of a consumer warp is a unit of 4 rows x 4 elements: each
+//   lane keeps 16 partials in registers, loads 4 K and 4 X vectors a step
+//   and makes 16 dot products of them, so each shared-memory load feeds 4
+//   (fp32: 16 FMAs).  A unit's 16 butterflies run transposed: at each level
+//   a lane keeps half its outputs and trades the other half with its
+//   partner, so 16 row sums cost 16 shuffles, not 80.
+// - Rows of at most 16 live vectors (afiro's 13 and 7) run G = 4, 8 or 16
+//   lanes to a unit, 32 / G units to a warp, so lanes do not idle on the
+//   +0.0 partials: the butterfly levels whose partner lanes hold only +0.0
+//   are an add of +0.0 in the lane itself.
+// - The wrapper's plan (ops/_kernels.py::shared_plan: G, RB, EB, chunk,
+//   stages, a fixed rule on shape, batch and the SM count) sizes the tiles
+//   so that blocks spread evenly over the SMs, two to an SM for whole
+//   rows; launch_shared checks it.
+// - The order of every sum is the single launch's.  For output (b, r),
+//   lane partial L (L < 32) starts at +0.0 and takes Vec<T>::dot_acc of the
+//   vectors L, L + 32, ... in order, then (if cols % W) lane nvec % 32 the
+//   last partial vector's elements by fma, then the butterfly with offsets
+//   16, 8, 4, 2, 1 over all 32 partials.  The mapping of lanes, units and
+//   tiles changes only who does each operation: a lane holds the partial L
+//   = its lane in the group for every output of its unit, chunks start at
+//   multiples of 32 vectors, and fadd is commutative.  So element b of a
+//   launch equals, bit for bit, a single launch on b; repeats are
+//   bit-identical; no atomics, no tensor cores, no TF32.
 
 // Layout contract (checked by the Python wrapper, tpdlp_torch/ops/_kernels.py):
 // M is row-major with a row stride `ld` that is a multiple of 4 elements and
@@ -54,8 +98,10 @@
 // 16-byte aligned.  A row chunk is copied up to cols rounded up to 4
 // elements (at most `ld`), but no value at or past `cols` is ever used, and
 // x is never read at or past `cols`.  In a batch, stride_m, ldx and ldy keep
-// every M_b and X[b] 16-byte aligned (multiples of 4 elements).  The kernel
-// allocates nothing and does not synchronise; it runs on the caller's stream.
+// every M_b and X[b] 16-byte aligned (multiples of 4 elements); the shared
+// kernel asks nothing of X but a unit column stride, and reads no X element
+// at or past cols.  The kernels allocate nothing and do not synchronise;
+// they run on the caller's stream.
 
 #include "pipeline.cuh"
 
@@ -229,6 +275,358 @@ int launch(const T* M, const T* x, T* y, int rows, int cols, int64_t ld,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The shared-K batch kernel (stride_m == 0; see the batch axis above).
+// ---------------------------------------------------------------------------
+
+constexpr int kUnitRows = 4;   // a unit: 4 rows x 4 elements of one tile
+constexpr int kUnitElems = 4;
+constexpr int kUnit = kUnitRows * kUnitElems;
+constexpr int kWholeRowBytes = 4096;  // rows up to this sit whole in a stage
+constexpr int kSharedStages = 2;      // the ring of a tile of longer rows
+constexpr int kMaxSmem = 227 * 1024;  // a block's shared memory on Hopper
+
+// acc + the first n products of a . b (n = W for a whole vector, cols % W
+// for the last partial one), in the order x, y, z, w: Vec<T>::dot_acc's
+// operations when n = W, the single kernel's tail loop otherwise.
+__device__ __forceinline__ float dot_acc_n(const float4 a, const float4 b,
+                                           float acc, int n) {
+  acc = fmaf(a.x, b.x, acc);
+  if (n > 1) acc = fmaf(a.y, b.y, acc);
+  if (n > 2) acc = fmaf(a.z, b.z, acc);
+  if (n > 3) acc = fmaf(a.w, b.w, acc);
+  return acc;
+}
+__device__ __forceinline__ double dot_acc_n(const double2 a, const double2 b,
+                                            double acc, int n) {
+  acc = fma(a.x, b.x, acc);
+  if (n > 1) acc = fma(a.y, b.y, acc);
+  return acc;
+}
+
+// A barrier of the consumer warps alone (the producer warp has left).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerWarps * kWarp) : "memory");
+}
+
+// One element of global memory to shared memory, asynchronously (cp.async:
+// no alignment asked beyond the element's own).
+template <typename T>
+__device__ __forceinline__ void cp_async(void* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+// Wait until at most N of this thread's committed cp.async groups are
+// pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start loading elements [k0, k1) of X's rows e0, ..., e0 + ne - 1 (row
+// stride ldx) into the stage's X rows, `stride` bytes apart: warp w takes
+// rows w, w + 8, ..., its lanes the elements (coalesced; any row stride,
+// so a fleet's x goes in as it is).  Commits one group per thread.
+template <typename T>
+__device__ __forceinline__ void load_x_async(unsigned char* xs, const T* x,
+                                             int e0, int ne, int64_t ldx,
+                                             int k0, int k1, int stride,
+                                             int warp, int lane) {
+  for (int e = warp; e < ne; e += kConsumerWarps) {
+    const T* src = x + (e0 + e) * ldx;
+    T* row = reinterpret_cast<T*>(xs + e * stride);
+    for (int k = k0 + lane; k < k1; k += kWarp) {
+      cp_async(row + (k - k0), src + k);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One unit's partials over the stage's live vectors [0, count) (chunk-local;
+// global vector v0 + lv): this lane takes lv = j, j + 32, ...  `ks` and `xs`
+// are the unit's first K row and first X row in the stage, `stride` bytes
+// apart.
+template <typename T>
+__device__ __forceinline__ void accumulate(T (&acc)[kUnit],
+                                           const unsigned char* ks,
+                                           const unsigned char* xs,
+                                           int stride, int j, int v0,
+                                           int count, int nvec, int tail) {
+  using V = typename Vec<T>::type;
+  constexpr int W = Vec<T>::width;
+  for (int base = 0; base < count; base += kWarp) {
+    const int lv = base + j;
+    if (lv >= count) continue;
+    const int n = v0 + lv < nvec ? W : tail;
+    V kv[kUnitRows], xv[kUnitElems];
+#pragma unroll
+    for (int i = 0; i < kUnitRows; ++i) {
+      kv[i] = reinterpret_cast<const V*>(ks + i * stride)[lv];
+    }
+#pragma unroll
+    for (int e = 0; e < kUnitElems; ++e) {
+      xv[e] = reinterpret_cast<const V*>(xs + e * stride)[lv];
+    }
+#pragma unroll
+    for (int i = 0; i < kUnitRows; ++i) {
+#pragma unroll
+      for (int e = 0; e < kUnitElems; ++e) {
+        acc[i * kUnitElems + e] =
+            dot_acc_n(kv[i], xv[e], acc[i * kUnitElems + e], n);
+      }
+    }
+  }
+}
+
+// One butterfly level, transposed over the unit's outputs: the lane keeps
+// H of its 2H sums (the upper half if its `off` bit is set) and adds its
+// partner's value of each; `base` tracks the first output it keeps.
+template <typename T, int H>
+__device__ __forceinline__ void fold(T (&acc)[kUnit], int lane, int off,
+                                     int& base) {
+  const bool up = (lane & off) != 0;
+#pragma unroll
+  for (int o = 0; o < H; ++o) {
+    const T send = up ? acc[o] : acc[o + H];
+    const T keep = up ? acc[o + H] : acc[o];
+    acc[o] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+  if (up) base += H;
+}
+
+// The butterfly of every output of a unit held by G lanes: levels whose
+// offset is at least G pair each partial with lanes that hold only +0.0
+// (an add of +0.0 here); the others fold.  Returns the first of the
+// kUnit / min(G, 16) outputs the lane then holds complete in acc[0, ...).
+template <typename T, int G>
+__device__ __forceinline__ int reduce_unit(T (&acc)[kUnit], int lane) {
+#pragma unroll
+  for (int off = kWarp / 2; off >= G; off /= 2) {
+#pragma unroll
+    for (int o = 0; o < kUnit; ++o) acc[o] = acc[o] + T(0);
+  }
+  int base = 0;
+  if constexpr (G >= 2) fold<T, 8>(acc, lane, G / 2, base);
+  if constexpr (G >= 4) fold<T, 4>(acc, lane, G / 4, base);
+  if constexpr (G >= 8) fold<T, 2>(acc, lane, G / 8, base);
+  if constexpr (G >= 16) fold<T, 1>(acc, lane, G / 16, base);
+  if constexpr (G >= 32) {
+    acc[0] = acc[0] + __shfl_xor_sync(0xffffffffu, acc[0], 1);
+  }
+  return base;
+}
+
+// Write the outputs this lane holds after reduce_unit (one lane of each
+// pair when G = 32): output o of unit (ur, ue) is row 4 ur + o / 4 and
+// element 4 ue + o % 4 of the tile.
+template <typename T, int G>
+__device__ __forceinline__ void store_unit(const T (&acc)[kUnit], int base,
+                                           int lane, int ur, int ue, int r0,
+                                           int e0, int nr, int ne, T* y,
+                                           int64_t ldy) {
+  constexpr int kHeld = kUnit / (G < 16 ? G : 16);
+  if (G == kWarp && (lane & 1)) return;
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int o = base + k;
+    const int r = ur * kUnitRows + o / kUnitElems;
+    const int e = ue * kUnitElems + o % kUnitElems;
+    if (r < nr && e < ne) y[(e0 + e) * ldy + r0 + r] = acc[k];
+  }
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads, 2)
+dense_matvec_shared_kernel(const T* __restrict__ M, const T* __restrict__ x,
+                           T* __restrict__ y, int rows, int cols, int64_t ld,
+                           int batch, int64_t ldx, int64_t ldy, int RB,
+                           int EB, int chunk, int stages) {
+  constexpr int W = Vec<T>::width;
+  constexpr int kGroups = kWarp / G;  // units a warp works on at once
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kSharedStages];
+  __shared__ __align__(8) uint64_t empty[kSharedStages];
+
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int item = static_cast<int>(sizeof(T));
+  const int row_bytes = ((cols + 3) & ~3) * item;
+  const int chunks = row_bytes <= chunk ? 1 : (row_bytes + chunk - 1) / chunk;
+  const int stride = min(row_bytes, chunk);  // a row's bytes in a stage
+  const int stage_bytes = (RB + EB) * stride;
+  const int row_blocks = (rows + RB - 1) / RB;
+  const int r0 = static_cast<int>(blockIdx.x % row_blocks) * RB;
+  const int e0 = static_cast<int>(blockIdx.x / row_blocks) * EB;
+  const int nr = min(RB, rows - r0), ne = min(EB, batch - e0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer warp: K's rows
+    const int64_t ld_bytes = ld * item;
+    const unsigned char* kb =
+        reinterpret_cast<const unsigned char*>(M) + r0 * ld_bytes;
+    for (int c = 0; c < chunks; ++c) {
+      const int s = c % stages;
+      const int c0 = c * chunk;
+      const uint32_t bytes = max(0, min(chunk, row_bytes - c0));
+      unsigned char* dst = ring + s * stage_bytes;
+      if (lane == 0) {
+        mbar_wait(&empty[s], ((c / stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], bytes * nr);
+      }
+      __syncwarp();
+      if (bytes == 0) continue;  // cols == 0: the phase completes empty
+      // One copy where the tile's rows lie back to back, else one a row,
+      // spread over the warp's lanes.
+      if (chunks == 1 && ld_bytes == row_bytes) {
+        if (lane == 0) bulk_copy(dst, kb, bytes * nr, &full[s]);
+      } else {
+        for (int r = lane; r < nr; r += kWarp) {
+          bulk_copy(dst + r * stride, kb + r * ld_bytes + c0, bytes,
+                    &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers.  Lane j of a unit's group holds partial j of each of the
+  // unit's 16 outputs (vectors j, j + 32, ...).
+  const int nvec = cols / W;
+  const int tail = cols - nvec * W;
+  const int nlive = nvec + (tail ? 1 : 0);
+  const int j = lane % G;
+  T acc[kUnit];
+  unsigned char* const xs = ring + RB * stride;  // stage 0's X rows
+  if (chunks == 1) {  // whole rows: the units of the tile, a pass at a time
+    load_x_async<T>(xs, x, e0, ne, ldx, 0, cols, stride, warp, lane);
+    cp_async_wait<0>();
+    consumers_sync();
+    const int nue = (ne + kUnitElems - 1) / kUnitElems;
+    const int units = (nr + kUnitRows - 1) / kUnitRows * nue;
+    mbar_wait(&full[0], 0);
+    for (int u0 = warp * kGroups; u0 < units;
+         u0 += kConsumerWarps * kGroups) {  // warp-uniform
+      const int u = min(u0 + lane / G, units - 1);
+      const int ur = u / nue, ue = u % nue;
+#pragma unroll
+      for (int o = 0; o < kUnit; ++o) acc[o] = T(0);
+      accumulate<T>(acc, ring + ur * kUnitRows * stride,
+                    xs + ue * kUnitElems * stride, stride, j, 0, nlive,
+                    nvec, tail);
+      const int base = reduce_unit<T, G>(acc, lane);
+      if (u0 + lane / G < units) {
+        store_unit<T, G>(acc, base, lane, ur, ue, r0, e0, nr, ne, y, ldy);
+      }
+    }
+    return;
+  }
+  // Longer rows (G = 32): one unit a warp, its partials carried over the
+  // chunks (each a multiple of 32 vectors, so lane j keeps partial j).  The
+  // X part of the next chunk's stage is loaded while this chunk computes;
+  // that stage's last readers finished before the previous chunk's closing
+  // barrier.
+  const int ues = EB / kUnitElems;
+  const int ur = warp / ues, ue = warp % ues;
+  const int cvec = chunk / 16;
+  const int celems = chunk / item;
+#pragma unroll
+  for (int o = 0; o < kUnit; ++o) acc[o] = T(0);
+  load_x_async<T>(xs, x, e0, ne, ldx, 0, min(cols, celems), stride, warp,
+                  lane);
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % stages;
+    if (c + 1 < chunks) {
+      const int k0 = (c + 1) * celems;
+      load_x_async<T>(xs + ((c + 1) % stages) * stage_bytes, x, e0, ne, ldx,
+                      k0, min(cols, k0 + celems), stride, warp, lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    consumers_sync();
+    mbar_wait(&full[s], (c / stages) & 1);
+    const unsigned char* st = ring + s * stage_bytes;
+    accumulate<T>(acc, st + ur * kUnitRows * stride,
+                  st + (RB + ue * kUnitElems) * stride, stride, j,
+                  c * cvec, min(cvec, nlive - c * cvec), nvec, tail);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    consumers_sync();
+  }
+  const int base = reduce_unit<T, G>(acc, lane);
+  store_unit<T, G>(acc, base, lane, ur, ue, r0, e0, nr, ne, y, ldy);
+}
+
+template <typename T, int G>
+int launch_shared_g(const T* M, const T* x, T* y, int rows, int cols,
+                    int64_t ld, int batch, int64_t ldx, int64_t ldy, int RB,
+                    int EB, int chunk, int stages, int smem, unsigned blocks,
+                    void* stream) {
+  static int smem_done[kMaxDevices] = {};
+  const cudaError_t err = allow_dynamic_smem(
+      dense_matvec_shared_kernel<T, G>, smem, smem_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_matvec_shared_kernel<T, G><<<blocks, kThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      M, x, y, rows, cols, ld, batch, ldx, ldy, RB, EB, chunk, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the wrapper's plan against what the kernel assumes, then launches
+// one block a tile.
+template <typename T>
+int launch_shared(const T* M, const T* x, T* y, int rows, int cols,
+                  int64_t ld, int batch, int64_t ldx, int64_t ldy, int G,
+                  int RB, int EB, int chunk, int stages, void* stream) {
+  if (rows <= 0 || batch <= 0) return 0;
+  const int64_t row_bytes = ((static_cast<int64_t>(cols) + 3) & ~3) *
+                            static_cast<int64_t>(sizeof(T));
+  const int64_t nlive = (cols + Vec<T>::width - 1) / Vec<T>::width;
+  const int64_t chunks = row_bytes <= chunk ? 1
+                                            : (row_bytes + chunk - 1) / chunk;
+  const int64_t smem =
+      static_cast<int64_t>(stages) * (RB + EB) * std::min<int64_t>(
+                                                     row_bytes, chunk);
+  const int64_t blocks = static_cast<int64_t>((rows + RB - 1) / RB) *
+                         ((batch + EB - 1) / EB);
+  const bool whole = chunks == 1;
+  if (RB <= 0 || EB <= 0 || RB % kUnitRows || EB % kUnitElems ||
+      chunk <= 0 || chunk % 16 || stages < 1 || stages > kSharedStages ||
+      smem > kMaxSmem || row_bytes >= (int64_t{1} << 31) ||
+      blocks >= (int64_t{1} << 31) || (G < kWarp && nlive > G) ||
+      (!whole && (G != kWarp || chunk % (16 * kWarp) ||
+                  stages != kSharedStages ||
+                  (RB / kUnitRows) * (EB / kUnitElems) != kConsumerWarps))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int s = static_cast<int>(smem);
+  const unsigned n = static_cast<unsigned>(blocks);
+  switch (G) {
+    case 4:
+      return launch_shared_g<T, 4>(M, x, y, rows, cols, ld, batch, ldx, ldy,
+                                   RB, EB, chunk, stages, s, n, stream);
+    case 8:
+      return launch_shared_g<T, 8>(M, x, y, rows, cols, ld, batch, ldx, ldy,
+                                   RB, EB, chunk, stages, s, n, stream);
+    case 16:
+      return launch_shared_g<T, 16>(M, x, y, rows, cols, ld, batch, ldx,
+                                    ldy, RB, EB, chunk, stages, s, n, stream);
+    case 32:
+      return launch_shared_g<T, 32>(M, x, y, rows, cols, ld, batch, ldx,
+                                    ldy, RB, EB, chunk, stages, s, n, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -244,11 +642,19 @@ int tpdlp_dense_matvec_f64(const double* M, const double* x, double* y,
   return launch<double>(M, x, y, rows, cols, ld, 1, 0, 0, 0, stream);
 }
 
-// Y[b] = M_b X[b] for b < batch in one launch (see the batch axis above).
+// Y[b] = M_b X[b] for b < batch in one launch (see the batch axis above):
+// a stack (stride_m != 0) walks (element, tile) pairs; a shared K
+// (stride_m == 0) runs dense_matvec_shared_kernel by the wrapper's plan
+// (G, RB, EB, chunk, stages; unused for a stack).
 int tpdlp_dense_matvec_batch_f32(const float* M, const float* x, float* y,
                                  int rows, int cols, int64_t ld, int batch,
                                  int64_t stride_m, int64_t ldx, int64_t ldy,
+                                 int G, int RB, int EB, int chunk, int stages,
                                  void* stream) {
+  if (stride_m == 0) {
+    return launch_shared<float>(M, x, y, rows, cols, ld, batch, ldx, ldy, G,
+                                RB, EB, chunk, stages, stream);
+  }
   return launch<float>(M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy,
                        stream);
 }
@@ -256,7 +662,12 @@ int tpdlp_dense_matvec_batch_f32(const float* M, const float* x, float* y,
 int tpdlp_dense_matvec_batch_f64(const double* M, const double* x, double* y,
                                  int rows, int cols, int64_t ld, int batch,
                                  int64_t stride_m, int64_t ldx, int64_t ldy,
+                                 int G, int RB, int EB, int chunk, int stages,
                                  void* stream) {
+  if (stride_m == 0) {
+    return launch_shared<double>(M, x, y, rows, cols, ld, batch, ldx, ldy, G,
+                                 RB, EB, chunk, stages, stream);
+  }
   return launch<double>(M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy,
                         stream);
 }

@@ -23,13 +23,16 @@ JAX package's vmap gives pallas_call) count under their own names.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -145,7 +148,8 @@ def _load():
             i64, ptr = ctypes.c_int64, ctypes.c_void_p
             batch_args = {
                 "dense": [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, i64,
-                          ctypes.c_int, i64, i64, i64, ptr],
+                          ctypes.c_int, i64, i64, i64, *[ctypes.c_int] * 5,
+                          ptr],
                 "band": [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, i64, i64,
                          i64, i64, ptr],
@@ -429,7 +433,8 @@ def _padded_rows(X: torch.Tensor) -> torch.Tensor:
     """X (B, c), contiguous, its row stride a multiple of ROW_ALIGN (zero
     columns appended where c is not) and its base 16-byte aligned (a copy
     of a view that starts off the alignment), so that every X[b] is
-    16-byte aligned: K1's vector loads and K2's bulk copies of x need it."""
+    16-byte aligned: K1's vector loads (a stack) and K2's bulk copies of x
+    need it."""
     X = X.contiguous()
     c = X.shape[1]
     if c % ROW_ALIGN:
@@ -477,15 +482,100 @@ def dense_matvec_batch_plain(M: torch.Tensor,
         .sum(dim=2) for i in range(0, B, step)])
 
 
+#: The shared-K kernel's tiles (csrc/dense_matvec.cu: kWholeRowBytes,
+#: kSharedStages): rows of at most _WHOLE_ROW_BYTES sit whole in one stage,
+#: whose tile takes at most _WHOLE_TILE_SMEM bytes (two blocks an SM: 228
+#: KB an SM, 1 KB of it reserved a block); longer rows stream in
+#: _CHUNK_BYTES parts (a multiple of 32 vectors) through a two-stage ring.
+_WHOLE_ROW_BYTES = 4096
+_WHOLE_TILE_SMEM = 113 * 1024
+_CHUNK_BYTES = 2048
+_CHUNK_STAGES = 2
+
+
+class SharedPlan(NamedTuple):
+    """A launch of the shared-K kernel: G lanes a unit of 4 rows x 4
+    elements, tiles of RB rows x EB elements (a block each, row blocks x
+    element blocks of them), `chunk` bytes of a row a stage (the whole row
+    when `stages` is 1), `stages` stages, `smem` bytes of shared memory a
+    block."""
+    G: int
+    RB: int
+    EB: int
+    chunk: int
+    stages: int
+    row_blocks: int
+    elem_blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def shared_plan(rows: int, cols: int, batch: int, item: int,
+                sms: int) -> SharedPlan:
+    """The shared-K kernel's tiles for a (rows, cols) K of `item`-byte
+    elements and `batch` right-hand sides on a card of `sms` SMs: a fixed
+    rule, a function of these numbers alone.
+
+    Whole rows (at most _WHOLE_ROW_BYTES): G = the live vectors of a row
+    rounded up to a power of two in [4, 32]; units (4 x 4 outputs) a block
+    at least one pass of its 8 warps (8 * 32 / G units), else the units
+    spread over two blocks an SM; the block's unit rectangle near square
+    (each byte of a tile's K and X rows feeds as many outputs), its K part
+    at most half the tile's memory, then evened out so the row and element
+    blocks come out the same size.  Longer rows: 8 units a block, one a
+    warp, 4 x 2 units (16 rows x 8 elements) or, for at most 4 elements,
+    8 x 1, K read once per 8 elements."""
+    row_bytes = -(-cols // 4) * 4 * item
+    nlive = -(-cols // (16 // item))  # 16-byte vectors a row, the last partial
+    units_r, units_e = -(-rows // 4), -(-batch // 4)
+    if row_bytes > _WHOLE_ROW_BYTES:
+        G, ue = 32, 2 if batch > 4 else 1
+        ur = 8 // ue
+        chunk, stages = _CHUNK_BYTES, _CHUNK_STAGES
+    else:
+        G = min(32, max(4, 1 << max(nlive - 1, 0).bit_length()))
+        slots = 8 * (32 // G)
+        fit = _WHOLE_TILE_SMEM // max(row_bytes, 16)  # tile rows, K and X
+        target = -(-max(slots, -(-units_r * units_e // (2 * sms)))
+                   // slots) * slots
+        side = 1 << math.isqrt(target - 1).bit_length()  # >= sqrt(target)
+        ur = min(units_r, max(1, fit // 8), side)
+        ur = -(-units_r // -(-units_r // ur))
+        ue = min(units_e, -(-target // ur), max(1, (fit - 4 * ur) // 4))
+        ue = -(-units_e // -(-units_e // ue))
+        chunk, stages = max(row_bytes, 16), 1
+    RB, EB = 4 * ur, 4 * ue
+    return SharedPlan(G, RB, EB, chunk, stages, -(-rows // RB),
+                      -(-batch // EB),
+                      stages * (RB + EB) * min(row_bytes, chunk))
+
+
+#: A stack's launch: the plan's fields are not read.
+_NO_PLAN = SharedPlan(0, 0, 0, 0, 0, 0, 0, 0)
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
 def dense_matvec_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Y (B, rows) with Y[b] = M_b X[b] in one launch: M a row-major
     (rows, cols) view shared by every element (row stride a multiple of
     ROW_ALIGN), or a (B, rows, cols) view of a stack whose matrices sit at
     one stride; X (B, cols).
 
-    CPU tensors take `dense_matvec_batch_plain`.  CUDA tensors launch the
-    dense_matvec kernel over its batch axis (csrc/dense_matvec.cu) on the
-    current stream; the call does not synchronise."""
+    CPU tensors take `dense_matvec_batch_plain`.  CUDA tensors launch, on
+    the current stream, the shared-K kernel by `shared_plan` where the
+    matrix stride is 0 (one K, read once for a tile of elements), else the
+    dense_matvec kernel over its batch axis (csrc/dense_matvec.cu); the
+    call does not synchronise."""
     if M.device.type == "cpu" and X.device.type == "cpu":
         return dense_matvec_batch_plain(M, X)
     _check_batch("dense_matvec_batch", (M,), X, 2)
@@ -509,14 +599,20 @@ def dense_matvec_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     Y = torch.empty((B, rows), dtype=M.dtype, device=M.device)
     if B == 0 or rows == 0:
         return Y
-    Xp = _padded_rows(X)
+    if stride_m == 0:
+        plan = shared_plan(rows, cols, B, M.element_size(),
+                           _sm_count(M.device))
+        # The shared-K kernel loads X's rows itself, at any row stride.
+        Xp = X if X.stride(-1) == 1 or cols <= 1 else X.contiguous()
+    else:
+        plan, Xp = _NO_PLAN, _padded_rows(X)
     lib = _load()
     fn = (lib.tpdlp_dense_matvec_batch_f32 if M.dtype == torch.float32
           else lib.tpdlp_dense_matvec_batch_f64)
     stream = torch.cuda.current_stream(M.device).cuda_stream
     with torch.cuda.device(M.device):
         code = fn(M.data_ptr(), Xp.data_ptr(), Y.data_ptr(), rows, cols, ld,
-                  B, stride_m, Xp.stride(0), rows, stream)
+                  B, stride_m, Xp.stride(0), rows, *plan[:5], stream)
     _check(code, "dense_matvec_batch launch")
     launches["dense_matvec_batch"] += 1
     return Y
