@@ -99,10 +99,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              corpus with the reference-parity flags and the certificates,
              through the autotune (--support_sparse) and then dense: exit
              0, and every row's status the scipy linprog verdict.
-13. presolve — the same sweep (dense) with --presolve python, then cpp
-             (the C++ core's g++ build timed first): linprog's verdict on
-             every row, Solved objectives within 10*tol of the sweep
-             without presolve, both engines' reductions per file equal.
+13. presolve — the C++ core's g++ build timed, both engines' reductions
+             per file equal; then (presolve_cli, beside 14-16) the same
+             sweep (dense) with --presolve python, then cpp: linprog's
+             verdict on every row, Solved objectives within 10*tol of the
+             sweep without presolve.
 14. refine — mittelmann-s at tol 1e-8 with dtype=None, so the solve
              escalates to iterative refinement (fp32 solves on the card,
              fp64 outer loop on the host), the refine_1e8 protocol with
@@ -124,7 +125,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              (max_kkt 200,000): the fp32 and the fp64 stage apart (k, j,
              wall, launches), the status the JAX package's CPU run gives
              (Solved), held to the criteria on the host.
-17. fleet  — tpdlp_torch.solve_batch at its users' sizes, bench/fleet.py's
+17. shard  — sharded solves over torch.distributed on the one card, at
+             full width, the main path's settings: one NCCL rank (1x1, this
+             process) and four gloo ranks (a 2x2 mesh; NCCL refuses two
+             ranks on one card, so gloo stages the CUDA tensors through
+             the host).
+             mittelmann-s through dense 2D blocks (K1 on each rank's
+             block): Solved, held on the host at 10*tol, within 5*tol of
+             the unsharded objective; banded 8192 through band strips (K2
+             on each rank's groups) and mittelmann-s through block-ELL
+             strips: Solved; banded 100k through band strips for
+             SHARD_BAND_KKT passes, each rank's peak device memory below
+             the unsharded band solve's.  On every rank the kernel's
+             launches equal the single solve's formula and the product
+             all_reduces one per product; every rank returns the same bits.
+             entry.dryrun_multichip(1) runs on the card beside the 2x2
+             group (one NCCL rank; four would need four cards).  The 2x2
+             group and the dry run start when `refine` does and run
+             beside phases 14-16, which time nothing and choose no layout
+             by timing, and the CLI runs of 13 and 19 follow the group
+             there, one at a time; this phase waits for all of them, then
+             runs the NCCL rank alone.
+18. fleet  — tpdlp_torch.solve_batch at its users' sizes, bench/fleet.py's
              settings (tol 1e-4, fp32, Ruiz + adaptive + PWU,
              restart_sync="global"): afiro-class x 10,000 over one shared
              K (the JAX package's "10k perturbed instances" fleet), every
@@ -142,30 +164,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              iteration's (single launches for a shared K).  The afiro
              fleet is solved once more under torch.profiler: the device's
              busy share, activities and busy time per iteration.
-18. fishnet — spectral_cast on mittelmann-s (the CLI's wiring: the scaled
+19. fishnet — spectral_cast on mittelmann-s (the CLI's wiring: the scaled
              problem, the dense layout), then the warm solve: Solved, held
-             on the host, cold and warm k and the cast's seconds;
+             on the host, cold and warm k and the cast's seconds; and
+             (fishnet_cli, beside 14-16)
              `python -m tpdlp_torch.bench.fishnet_value --device cuda`:
              cold and warm Solved on every row; the CLI sweep of the corpus
              with --fishnet, then --batch_solve: every row linprog's
              verdict.
-
-19. shard  — sharded solves over torch.distributed on the one card, at
-             full width, the main path's settings: one NCCL rank (1x1, this
-             process) and four gloo ranks (a 2x2 mesh; NCCL refuses two
-             ranks on one card, so gloo stages the CUDA tensors through
-             the host).
-             mittelmann-s through dense 2D blocks (K1 on each rank's
-             block): Solved, held on the host at 10*tol, within 5*tol of
-             the unsharded objective; banded 8192 through band strips (K2
-             on each rank's groups) and mittelmann-s through block-ELL
-             strips: Solved; banded 100k through band strips for
-             SHARD_BAND_KKT passes, each rank's peak device memory below
-             the unsharded band solve's.  On every rank the kernel's
-             launches equal the single solve's formula and the product
-             all_reduces one per product; every rank returns the same bits.
-             entry.dryrun_multichip(1) runs on the card beside the 2x2
-             group (one NCCL rank; four would need four cards).
 20. harness — bench/runner.py on mittelmann-s (3 seeds; one row of
              bench.py's schema, vs_baseline null: no reference tree here)
              and bench/roofline.py for dense, band and block-ELL at
@@ -193,6 +199,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -351,8 +358,15 @@ _CARD_RATES = [
 ]
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line, whole, whichever thread emits it."""
+    line = json.dumps({"phase": phase, **kw}) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def card_rates(name: str):
@@ -1834,16 +1848,11 @@ def fp64_tail_phase(dev, p, refine_row):
         raise AssertionError(f"fp64_tail: Solved, host residuals {row}")
 
 
-def presolve_phase(oracle, dense_rows):
-    """The vendored corpus through the CLI with --presolve python, then
-    cpp (the C++ core built with g++ first, timed): every row's status the
-    linprog verdict, every Solved row's objective within 10*tol of the
-    no-presolve dense sweep's; the reductions of both engines
-    (bench/presolve_stats.py) printed per row and equal."""
-    import os
-
+def presolve_phase():
+    """The C++ core built with g++ (timed); the reductions of both engines
+    (bench/presolve_stats.py) over the vendored corpus printed per row and
+    equal.  presolve_cli runs the CLI with them."""
     from tpdlp_torch.bench import presolve_stats
-    from tpdlp_torch.bench.suite import INSTANCES_DIR
     from tpdlp_torch.presolve import cpp
 
     built_before = cpp.library_path().exists()
@@ -1865,6 +1874,16 @@ def presolve_phase(oracle, dense_rows):
     for name, v in by.items():
         if any(v["python"][k] != v["cpp"][k] for k in keys):
             raise AssertionError(f"presolve_stats {name}: {v}")
+
+
+def presolve_cli(oracle, dense_rows):
+    """The vendored corpus through the CLI with --presolve python, then
+    cpp: every row's status the linprog verdict, every Solved row's
+    objective within 10*tol of the no-presolve dense sweep's."""
+    import os
+
+    from tpdlp_torch.bench.suite import INSTANCES_DIR
+
     files = sorted(f for f in os.listdir(INSTANCES_DIR) if f.endswith(".mps"))
     for backend in ("python", "cpp"):
         got, _ = _cli_sweep(["--matrix_format", "dense", "--presolve",
@@ -1900,13 +1919,12 @@ def fleet_instances(p_l):
 
 def _batch_dense_side(M, B):
     """One direction of a dense batch case: M (m, n) shared or
-    (B, m, n) stacked (a shared K's row also names the shared-K kernel's
-    plan)."""
+    (B, m, n) stacked (the row also names its kernel's plan)."""
     from tpdlp_torch.ops import _kernels as K
 
     stacked = M.dim() == 3
     m, n = M.shape[-2:]
-    plan = None if stacked else K.shared_plan(
+    plan = (K.stack_plan if stacked else K.shared_plan)(
         m, n, B, M.element_size(), K._sm_count(M.device))._asdict()
     return dict(plan=plan,
         cols=n, inner=n, kernel="dense_matvec",
@@ -1929,14 +1947,25 @@ def _batch_band_side(mat, B):
     _, G, R, WB = slabs.shape
     rows = min(m, G * R)
 
+    S = slabs.reshape(-1, R, WB)
+    # The windows' columns, fixed for the operator, are built once.
+    col = starts.long()[..., None] + torch.arange(WB, device=starts.device)
+    idx = col.clamp(max=n - 1).reshape(B, -1)
+    outside = (col >= n).reshape(B, -1)
+
     def library(X):
-        # torch.bmm over the gathered windows (the gather outside the
-        # timed call, as for the single kernel's yardstick).
+        # torch.bmm over the gathered windows, the gather and its masking
+        # inside the timed call: the same function from X as the kernel's.
+        return lambda: torch.bmm(S, torch.gather(X, 1, idx).masked_fill_(
+            outside, 0).reshape(-1, WB, 1))
+
+    def library_bmm_only(X):
+        # The yardstick before: the gather outside the timed call.
         win = K._band_windows_batch(starts, X, n, WB).reshape(-1, WB, 1)
-        S = slabs.reshape(-1, R, WB)
         return lambda: torch.bmm(S, win)
 
     return dict(
+        library_bmm_only=library_bmm_only,
         cols=n, inner=WB, kernel="band_matvec",
         batch=lambda X: K.band_matvec_batch(slabs, starts, X, m, n),
         single=lambda b, x: K.band_matvec(slabs[b], starts[b], x, m, n),
@@ -2073,6 +2102,9 @@ def batch_kernels_phase(dev, rates, fleets, p_s):
                 row["nnz"] = c["nnz"]
             if c.get("plan"):
                 row["plan"] = c["plan"]
+            if "library_bmm_only" in c:
+                row["library_bmm_only_ms"] = time_launches(
+                    c["library_bmm_only"](X), flush)
             if label.startswith("mittelmann-s"):
                 row["single_ms"] = time_launches(
                     lambda: c["single"](0, xs[0]), flush)
@@ -2251,7 +2283,8 @@ def fleet_phase(dev, fleets):
     single solves on the card), the distinct deg2-shaped stack over K1,
     the distinct banded 8192 stack over K2 through "auto" (band chosen, K1
     never launched) and mittelmann-l x 8 through "sparse" (replayed: the
-    same x bits).  Returns {kernel: its launches in its fleet}."""
+    same x bits).  Returns {kernel: its launches in its fleet} (K1's batch
+    axis twice: the afiro fleet's shared K and the distinct stack)."""
     from tpdlp_torch import SolverConfig, Status, solve
     from tpdlp_torch.bench.fleet import fleet_config, perturbed_fleet
 
@@ -2291,8 +2324,9 @@ def fleet_phase(dev, fleets):
             raise AssertionError(f"deg2 fp64 element {b}: fleet {same[-1]}")
     emit("fleet_elements", elements=same)
 
-    _fleet_run(dev, "deg2-shaped distinct", fleets["distinct"], cfg,
-               "dense_matvec_batch", matrix_format="dense", **sync)
+    _, distinct = _fleet_run(dev, "deg2-shaped distinct",
+                             fleets["distinct"], cfg, "dense_matvec_batch",
+                             matrix_format="dense", **sync)
     _, band = _fleet_run(dev, "banded-8192 distinct", fleets["banded"], cfg,
                          "band_matvec_batch", matrix_format="auto",
                          shared_operator=False, **sync)
@@ -2312,22 +2346,17 @@ def fleet_phase(dev, fleets):
     if not replay or any(r.status != Status.SOLVED for r in rs2):
         raise AssertionError("mittelmann-l sparse fleet: the replay differs")
     return {"dense_matvec": afiro["launches"]["dense_matvec_batch"],
+            "dense_matvec_stack": distinct["launches"]["dense_matvec_batch"],
             "band_matvec": band["launches"]["band_matvec_batch"],
             "csr_matvec": sparse["launches"]["csr_matvec_batch"]}
 
 
-def fishnet_phase(dev, p_s, cold, oracle):
+def fishnet_phase(dev, p_s, cold):
     """The fishnet warm start: spectral_cast on mittelmann-s at full size
     (the CLI's wiring: the scaled problem, the solve's dense layout), then
     the warm solve (Solved, held on the host; cold k from the solve phase
-    beside it); `python -m tpdlp_torch.bench.fishnet_value --device cuda`
-    over its default classes (cold and warm Solved on every row); and the
-    CLI sweep of the corpus with --fishnet, then --batch_solve (every
-    row's status linprog's verdict)."""
-    import os
-
+    beside it).  fishnet_cli runs the fishnet's harness and CLI."""
     from tpdlp_torch import solve
-    from tpdlp_torch.bench.suite import INSTANCES_DIR
     from tpdlp_torch.fishnet import fishnet_start
     from tpdlp_torch.ops import _kernels as K
 
@@ -2347,6 +2376,17 @@ def fishnet_phase(dev, p_s, cold, oracle):
          warm_j=warm.kkt_passes, warm_status=warm.status_string,
          warm_solve_time_s=warm.solve_time, **check)
     _check_solution(f"{p_s.name} fishnet warm", warm, check)
+
+
+def fishnet_cli(oracle):
+    """`python -m tpdlp_torch.bench.fishnet_value --device cuda` over its
+    default classes (cold and warm Solved on every row); the CLI sweep of
+    the corpus with --fishnet, then --batch_solve (every row's status
+    linprog's verdict)."""
+    import os
+
+    from tpdlp_torch.bench.suite import INSTANCES_DIR
+    from tpdlp_torch.ops import _kernels as K
 
     root = os.path.dirname(os.path.abspath(__file__))
     K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2482,28 +2522,12 @@ def _shard_rows(tag, cases, per_rank, kernel, expect_fn):
     return rows
 
 
-def shard_phase(dev, p_s, p_b8, cold_s, band_row):
-    """Sharded solves over torch.distributed on the one card, at full
-    width: one NCCL rank (a 1x1 mesh, in this process) and four gloo ranks
-    sharing the card (2x2 mesh).  mittelmann-s through dense 2D blocks
-    (Solved, held on the host at 10 * tol, within 5 * tol of the
-    unsharded objective), banded 8192 through band strips, mittelmann-s
-    through block-ELL strips ("sparse"), and banded 100k through band
-    strips for SHARD_BAND_KKT passes, whose per-rank peak memory must stay
-    below the unsharded band solve's.  Each rank's kernel launches equal
-    the single solve's formula, and its product all_reduces one per
-    product.  The NCCL rank runs first, alone; then the 2x2 group, with
-    entry.dryrun_multichip(1) (the entry point on the card: one NCCL rank,
-    spawned) beside it."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from tpdlp_torch.entry import dryrun_multichip
-    from tpdlp_torch.shard import run_ranks
-
+def _shard_cases(p_s, p_b8):
+    """shard_phase's cases, each run on every mesh."""
     main = dict(tol=TOL, max_kkt=MAX_KKT, scaling="ruiz", adaptive=True,
                 primal_weight_update=True, time_limit=600)
     n, mi, me, bw = BAND_100K
-    cases = [
+    return [
         {"name": p_s.name, "problem": p_s, "format": "dense", "cfg": main},
         {"name": p_b8.name, "problem": p_b8, "format": "band", "cfg": main},
         {"name": p_s.name, "problem": p_s, "format": "sparse", "cfg": main},
@@ -2511,6 +2535,61 @@ def shard_phase(dev, p_s, p_b8, cold_s, band_row):
          "banded": dict(n=n, m_ineq=mi, m_eq=me, bandwidth=bw, seed=0),
          "cfg": dict(main, max_kkt=SHARD_BAND_KKT)},
     ]
+
+
+def _timed(fn, *a, **kw):
+    t = time.perf_counter()
+    return fn(*a, **kw), time.perf_counter() - t
+
+
+def meanwhile_start(dev, p_s, p_b8, oracle, dense_rows):
+    """Start, in background threads, the work that waits on other
+    processes: shard_phase's 2x2 gloo group, then presolve_cli and
+    fishnet_cli (CLI subprocesses, one at a time); and beside them
+    entry.dryrun_multichip(1) (the entry point on the card: one NCCL rank,
+    spawned).  They run beside the phases that time nothing and choose no
+    layout by timing; each all_reduce of the group waits on the host's
+    loopback, which leaves the card mostly idle.  Returns (when they were
+    spawned, the future of the gloo group's result, the dry run's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpdlp_torch.entry import dryrun_multichip
+    from tpdlp_torch.shard import run_ranks
+
+    def chain():
+        gloo = _timed(run_ranks, _shard_rank, SHARD_RANKS, backend="gloo",
+                      device=str(dev), shape=(2, 2),
+                      args=(_shard_cases(p_s, p_b8),), timeout=900)
+        for name, fn, *a in (("presolve_cli", presolve_cli, oracle,
+                              dense_rows),
+                             ("fishnet_cli", fishnet_cli, oracle)):
+            _, seconds = _timed(fn, *a)
+            emit("phase_seconds", name=name, seconds=seconds,
+                 beside="refine, refine_band, fp64_tail")
+        return gloo
+
+    pool = ThreadPoolExecutor(2)
+    spawned = time.time()
+    gloo_f = pool.submit(chain)
+    dry_f = pool.submit(_timed, dryrun_multichip, 1, device=dev)
+    pool.shutdown(wait=False)
+    return spawned, gloo_f, dry_f
+
+
+def shard_phase(dev, p_s, p_b8, cold_s, band_row, started):
+    """Sharded solves over torch.distributed on the one card, at full
+    width: one NCCL rank (a 1x1 mesh, in this process) and four gloo ranks
+    sharing the card (2x2 mesh), the latter with entry.dryrun_multichip(1)
+    beside them, both started by meanwhile_start (`started`; the gloo
+    group's result waits for the CLI runs queued behind it).  mittelmann-s
+    through dense 2D blocks (Solved, held on the host at 10 * tol, within
+    5 * tol of the unsharded objective), banded 8192 through band strips,
+    mittelmann-s through block-ELL strips ("sparse"), and banded 100k
+    through band strips for SHARD_BAND_KKT passes, whose per-rank peak
+    memory must stay below the unsharded band solve's.  Each rank's kernel
+    launches equal the single solve's formula, and its product all_reduces
+    one per product."""
+    cases = _shard_cases(p_s, p_b8)
     kernels = ["dense_matvec", "band_matvec", None, "band_matvec"]
 
     def products(case, r):
@@ -2519,23 +2598,11 @@ def shard_phase(dev, p_s, p_b8, cold_s, band_row):
         return expected_launches(SolverConfig(**case["cfg"]), _as_result(r),
                                  r["issued"])
 
-    def timed(fn, *a, **kw):
-        t = time.perf_counter()
-        return fn(*a, **kw), time.perf_counter() - t
-
-    nccl, nccl_s = timed(_nccl_in_process, dev, cases[:1])
-    # The dry run's one NCCL rank beside the 2x2 group: each all_reduce of
-    # the group waits on the host's loopback (gloo), which leaves the card
-    # mostly idle.
-    with ThreadPoolExecutor(2) as pool:
-        spawned = time.time()
-        gloo_f = pool.submit(timed, run_ranks, _shard_rank, SHARD_RANKS,
-                             backend="gloo", device=str(dev), shape=(2, 2),
-                             args=(cases,), timeout=900)
-        dry_f = pool.submit(timed, dryrun_multichip, 1, device=dev)
-        gloo, gloo_s = gloo_f.result()
-        returned = time.time()
-        dry, dry_s = dry_f.result()
+    spawned, gloo_f, dry_f = started
+    gloo, gloo_s = gloo_f.result()
+    dry, dry_s = dry_f.result()
+    # Then the NCCL rank, alone.
+    nccl, nccl_s = _timed(_nccl_in_process, dev, cases[:1])
     emit("dryrun_multichip", ranks=1, backend="nccl", seconds=dry_s,
          **{k: {"k": v[0], "objective": v[1]} for k, v in dry.items()})
     rows = (_shard_rows("2x2 gloo", cases, gloo, kernels, products)
@@ -2572,7 +2639,7 @@ def shard_phase(dev, p_s, p_b8, cold_s, band_row):
                         "1x1 nccl": nccl[0]["all_reduce_ms"]},
          gloo_solves_s=sum(r["wall_s"] for r in gloo[0]["cases"]),
          gloo_start_s=max(r["entered"] for r in gloo) - spawned,
-         gloo_exit_s=returned - min(r["left"] for r in gloo))
+         gloo_exit_s=spawned + gloo_s - min(r["left"] for r in gloo))
     return launches
 
 
@@ -2752,7 +2819,11 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
     del band_run
     phase("checkpoint", checkpoint_phase, dev)
     oracle, dense_cli = phase("cli", cli_phase)
-    phase("presolve", presolve_phase, oracle, dense_cli)
+    phase("presolve", presolve_phase)
+    # The sharded 2x2 group, the presolve and fishnet CLI runs and the dry
+    # run, meanwhile: refine, refine_band and fp64_tail time nothing and
+    # choose no layout by timing.
+    started = meanwhile_start(dev, p_s, p_b8, oracle, dense_cli)
     out["refine_row"] = phase("refine", refine_phase, dev, "refine", p_s,
                               oracles["refine"], "dense_matvec", REFINE_KKT,
                               "coarse")
@@ -2761,13 +2832,13 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
         oracles["refine_band"], "band_matvec", REFINE_BAND_KKT, "prefix",
         start=REFINE_BAND_START, matrix_format="band")
     phase("fp64_tail", fp64_tail_phase, dev, p_s, out["refine_row"])
-    out["fleet_launches"] = phase("fleet", fleet_phase, dev, fleets)
-    del fleets
     cold_s = next(r for r in out["dense_runs"]
                   if r["instance"] == p_s.name and r["seed"] == 0)
-    phase("fishnet", fishnet_phase, dev, p_s, cold_s, oracle)
     out["shard_launches"] = phase("shard", shard_phase, dev, p_s, p_b8,
-                                  cold_s, band_row)
+                                  cold_s, band_row, started)
+    out["fleet_launches"] = phase("fleet", fleet_phase, dev, fleets)
+    del fleets
+    phase("fishnet", fishnet_phase, dev, p_s, cold_s)
     phase("harness", harness_phase, dev, p_s, smi)
     emit("total", seconds=time.perf_counter() - t_start)
 
@@ -2821,55 +2892,78 @@ def _summary(out):
                          csr_head),
          "replaces_note": "SparseOp.mv, an XLA BCOO product: no Pallas "
                           "kernel",
+         "sparse_1m": [{k: r[k] for k in (
+             "case", "kernel_ms", "library_ms", "bound_ms",
+             "kernel_loop_ms", "library_loop_ms")}
+             for r in out["csr_rows"] if r["case"].startswith("sparse-1M")],
          "launches_sparse_1m": out["csr_launches_1m"],
          "shape": csr_head["shape"], "nnz": csr_head["nnz"]},
         *_batch_entries(out["batch_rows"], out["fleet_launches"]),
     ]}
 
 
-#: Each batched kernel's summary row: the case of the fleet that is its
-#: main path (afiro-class x 10,000; the banded 8192 stack; mittelmann-l x
-#: 8), and its source and TPU kernel.
+#: Each batched kernel's summary entry: its name, the kernel whose rows
+#: it reads, the case of the fleet that is its main path (afiro-class x
+#: 10,000 over a shared K; the 16 distinct deg2-shaped LPs; the banded 8192
+#: stack; mittelmann-l x 8), which rows it covers, its launches' key in
+#: fleet_phase's counts, and its source and TPU kernel.
 _BATCH_HEADS = {
-    "dense_matvec": ("afiro-class shared K", "tpdlp_torch/csrc/dense_matvec.cu",
-                     "tpdlp/ops/pallas_dense.py:77"),
-    "band_matvec": ("banded-8192 stack K", "tpdlp_torch/csrc/band_matvec.cu",
-                    "tpdlp/ops/band.py:160"),
-    "csr_matvec": ("mittelmann-l shared K", "tpdlp_torch/csrc/csr_matvec.cu",
-                   "tpdlp/ops/sparse.py:65"),
+    "dense_matvec_batch": (
+        "dense_matvec", "afiro-class shared K", "shared", "dense_matvec",
+        "tpdlp_torch/csrc/dense_matvec.cu", "tpdlp/ops/pallas_dense.py:77"),
+    "dense_matvec_batch_stack": (
+        "dense_matvec", "deg2-shaped stack K", "stack", "dense_matvec_stack",
+        "tpdlp_torch/csrc/dense_matvec.cu", "tpdlp/ops/pallas_dense.py:77"),
+    "band_matvec_batch": (
+        "band_matvec", "banded-8192 stack K", "", "band_matvec",
+        "tpdlp_torch/csrc/band_matvec.cu", "tpdlp/ops/band.py:160"),
+    "csr_matvec_batch": (
+        "csr_matvec", "mittelmann-l shared K", "", "csr_matvec",
+        "tpdlp_torch/csrc/csr_matvec.cu", "tpdlp/ops/sparse.py:65"),
 }
 
 
 def _batch_entries(rows, launches):
-    """The summary entries of the three kernels' batch axis: launches in
-    their fleets, the head case's times and bound, the largest fp32 error
-    over every batched case of the kernel."""
+    """The summary entries of the three kernels' batch axis (K1's twice: a
+    shared K and a stack): launches in their fleets, the head case's times
+    and bound, the largest fp32 error over the entry's batched cases."""
     out = []
-    for kernel, (case, source, replaces) in _BATCH_HEADS.items():
-        name = kernel + "_batch"
-        mine = [r for r in rows if r["kernel"] == name]
+    for name, (kernel, case, cover, key, source,
+               replaces) in _BATCH_HEADS.items():
+        mine = [r for r in rows if r["kernel"] == kernel + "_batch"
+                and cover in r["case"]]
         head = next(r for r in mine if r["case"] == case
                     and r["dtype"] == "float32")
         entry = {
-            **_kernel_entry(name, source, replaces, launches[kernel], mine,
+            **_kernel_entry(name, source, replaces, launches[key], mine,
                             head),
             "case": case, "batch": head["batch"], "shape": head["shape"],
             "single_launches_ms": head["single_launches_ms"],
         }
         if kernel == "dense_matvec":
-            entry["shared_k"] = _SHARED_K_NOTE
+            entry["design"] = _DENSE_BATCH_NOTES[cover]
             entry["plan"] = head["plan"]
             entry["library_factor"] = head["kernel_ms"] / head["library_ms"]
+        if kernel == "band_matvec":
+            entry["library_bmm_only_ms"] = head["library_bmm_only_ms"]
         out.append(entry)
     return out
 
 
-#: The dense batch entry's note on its two kernels (csrc/dense_matvec.cu).
-_SHARED_K_NOTE = (
-    "a shared K (stride 0): dense_matvec_shared_kernel, a block a tile of "
-    "K rows x elements, units of 4 x 4 outputs with G lanes each; rows of "
-    "at most 4 KB whole in one stage, longer rows in 2 KB chunks through "
-    "a two-stage ring; a stack: the persistent (element, tile) walk")
+#: The dense batch entries' notes on their kernels (csrc/dense_matvec.cu).
+_DENSE_BATCH_NOTES = {
+    "shared": (
+        "a shared K (stride 0): dense_matvec_shared_kernel, a block a tile "
+        "of K rows x elements, units of 4 x 4 outputs with G lanes each; "
+        "rows of at most 4 KB whole in one stage, longer rows in 2 KB "
+        "chunks through a two-stage ring"),
+    "stack": (
+        "a stack (stride != 0): dense_matvec_stack_kernel, a block a tile "
+        "of one element's rows (about four blocks an SM, one wave), X[b] "
+        "loaded by cp.async at any stride (no padded copy); rows of at "
+        "most 4 KB whole, a stage 8 rows, every stage in flight; longer "
+        "rows in 4 KB parts, each stage with X's part, a ring of three"),
+}
 
 
 if __name__ == "__main__":

@@ -347,6 +347,50 @@ def test_csr_kernel_matches_plain_on_card(card, dtype):
         assert torch.equal(y, _kernels.csr_matvec(crow, col, val, x))
 
 
+def _csr_on_card(K, dtype, card):
+    return (torch.as_tensor(K.indptr.astype(np.int32), device=card),
+            torch.as_tensor(K.indices.astype(np.int32), device=card),
+            torch.as_tensor(K.data, dtype=dtype, device=card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_kernel_keeps_its_bits_on_ragged_rows_on_card(card, dtype):
+    """The CSR kernel gives the same bits launch after launch, within the
+    plain twin's tolerance: rows of some 10 nonzeros (sparse-1M's K'),
+    mostly empty rows, one row of 1000 nonzeros beside rows of 1; and on
+    the batch axis element b is bit for bit a single launch."""
+    import scipy.sparse as sp
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(17)
+    rng = np.random.default_rng(17)
+    lens = np.ones(2003, dtype=np.int64)
+    lens[1001] = 1000
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    spike = sp.csr_matrix((rng.standard_normal(indptr[-1]),
+                           rng.integers(0, 5000, indptr[-1]), indptr),
+                          shape=(2003, 5000))
+    mats = [_random_sparse(100_003, 50_000, 2e-4, seed=1),
+            _random_sparse(5001, 40, 0.02, seed=2), spike]
+    for K in mats:
+        crow, col, val = _csr_on_card(K, dtype, card)
+        m, n = K.shape
+        x = torch.randn((n,), generator=gen, dtype=dtype, device=card)
+        y = _kernels.csr_matvec(crow, col, val, x)
+        ref = _kernels.csr_matvec_plain(crow, col, val, x)
+        rel = float(((y - ref).abs() / (1 + ref.abs())).max())
+        assert rel < _tol(int(np.diff(K.indptr).max()), dtype), (m, rel)
+        assert torch.equal(_bits(_kernels.csr_matvec(crow, col, val, x)),
+                           _bits(y))
+    K = _random_sparse(20_000, 8000, 1e-3, seed=3)
+    crow, col, val = _csr_on_card(K, dtype, card)
+    X = torch.randn((64, 8000), generator=gen, dtype=dtype, device=card)
+    _per_element(lambda X: _kernels.csr_matvec_batch(crow, col, val, X),
+                 lambda x: _kernels.csr_matvec(crow, col, val, x), X,
+                 "csr_matvec",
+                 lambda X: _kernels.csr_matvec_batch_plain(crow, col, val, X))
+
+
 def test_csr_kernel_rejects_what_it_does_not_take(card):
     crow = torch.tensor([0, 1], dtype=torch.int32, device=card)
     col = torch.tensor([0], dtype=torch.int32, device=card)
@@ -634,6 +678,65 @@ def test_shared_batch_kernel_equals_single_launches_on_card(card, dtype,
             zero = (M == 0).all(dim=1)
             assert torch.equal(_bits(Y[:, zero]),
                                _bits(torch.zeros_like(Y[:, zero])))
+
+
+def _nan_padded_stack(B, rows, cols, gen, dtype, card):
+    """A (B, rows, cols) view of a stack whose row stride (cols rounded up
+    to 4, plus 4) holds NaN past cols, its matrices at one stride."""
+    ld = -(-cols // 4) * 4 + 4
+    full = torch.full((B, rows, ld), float("nan"), dtype=dtype, device=card)
+    full[:, :, :cols] = torch.randn((B, rows, cols), generator=gen,
+                                    dtype=dtype, device=card)
+    return full[:, :, :cols]
+
+
+@pytest.mark.parametrize("case", ["deg2", "long", "tails", "views"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stack_batch_kernel_equals_single_launches_on_card(card, dtype,
+                                                           case):
+    """The stack kernel (stride_m != 0) by each regime of its plan: the
+    distinct fleet's 444 x 757 and 757 x 444 (cols % 4 = 1; fp64 757's
+    rows stream in parts) at B = 1, 16 and 64; rows longer than 4 KB
+    (mittelmann-s's 5000 columns, 1299, 1025) with ragged tiles; cols % 4
+    of 1, 2 and 3 and a single column; X a view at a row stride of cols + 5
+    and one that starts an element into its buffer, neither padded.  Every
+    element bit for bit a single launch, one launch a call, NaN in the row
+    padding never used."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(16)
+    if case == "deg2":
+        stacks = [(B, m, n) for m, n in ((444, 757), (757, 444))
+                  for B in (1, 16, 64)]
+    elif case == "long":
+        stacks = [(3, 300, 5000), (5, 33, 1299), (2, 17, 1025), (1, 9, 5000)]
+    elif case == "tails":
+        stacks = [(7, 33, n) for n in (1, 101, 102, 103)]
+    else:
+        stacks = [(5, 61, 757), (3, 20, 1299)]
+    for B, m, n in stacks:
+        S = _nan_padded_stack(B, m, n, gen, dtype, card)
+        if case == "views":
+            Xs = [torch.randn((B, n + 5), generator=gen, dtype=dtype,
+                              device=card)[:, :n],
+                  torch.randn((B * n + 1,), generator=gen, dtype=dtype,
+                              device=card)[1:].view(B, n)]
+            assert Xs[1].data_ptr() % 16
+        else:
+            Xs = [torch.randn((B, n), generator=gen, dtype=dtype,
+                              device=card)]
+        for X in Xs:
+            before = _kernels.launches["dense_matvec_batch"]
+            Y = _kernels.dense_matvec_batch(S, X)
+            assert _kernels.launches["dense_matvec_batch"] == before + 1
+            assert torch.equal(_bits(Y), _bits(_kernels.dense_matvec_batch(
+                S, X)))
+            assert bool(torch.isfinite(Y).all())
+            ref = _kernels.dense_matvec_batch_plain(S, X)
+            rel = float(((Y - ref).abs() / (1 + ref.abs())).max())
+            assert rel < _tol(n, dtype), (B, m, n, rel)
+            singles = torch.stack([dense_matvec(S[b], X[b].clone())
+                                   for b in range(B)])
+            assert torch.equal(_bits(Y), _bits(singles)), (B, m, n)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

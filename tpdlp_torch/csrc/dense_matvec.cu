@@ -42,9 +42,30 @@
 // b < batch, with M_b = M + b * stride_m, X[b] = x + b * ldx and
 // Y[b] = y + b * ldy, in one of two kernels picked by stride_m alone.
 //
-// A stack of distinct K (stride_m != 0) takes the kernel above: its
-// persistent loop walks (element, tile) pairs, t = b * tiles + tile, so a
-// row's reduction is exactly the single launch's.
+// A stack of distinct K (stride_m != 0) takes dense_matvec_stack_kernel
+// below, built for many small distinct matrices (a distinct fleet: 16 x
+// 444 x 757 fp32, 21.6 MB).
+// - Bound: bytes, each M_b read once (6.4 us at the fleet's shape).  An
+//   element's work is small, so what costs is the time to get every byte
+//   requested: a persistent walk of (element, 8-row tile) pairs through a
+//   ring would keep the ring filling or draining for most of a launch
+//   (6.8 pairs a block at the fleet's shape), and vector loads of X would
+//   need X padded to 16-byte rows, a second kernel in every product.
+// - Design.  A block owns a tile of RB rows of one element (a grid of row
+//   blocks x elements, not persistent), sized by the wrapper
+//   (ops/_kernels.py::stack_plan) so that the grid fills the card in one
+//   wave: four blocks an SM for rows of at most 4 KB, two for longer.  The producer warp loads X[b] into shared memory with
+//   cp.async at any row stride and alignment (no padded copy), its
+//   completion tracked by an mbarrier, and bulk-copies the tile's K rows,
+//   8 rows (one a consumer warp) a stage.  Rows of at most 4 KB: the
+//   whole row in a stage, X[b] loaded once, and a tile's stages all in
+//   flight at once where they fit (the fleet's tiles do).  Longer rows:
+//   4 KB parts, each stage carrying the same part of X[b], through a ring
+//   of stages.
+// - The order of every sum is the single launch's: lane L sums vectors L,
+//   L + 32, ... (parts start at multiples of 32 vectors), the last partial
+//   vector by fma, then the butterfly 16, 8, 4, 2, 1.  So element b equals
+//   a single launch on b, bit for bit.
 //
 // One K shared by the fleet (stride_m == 0) takes dense_matvec_shared_kernel
 // below, which reads K once for a tile of right-hand sides.
@@ -97,10 +118,10 @@
 // a 16-byte-aligned base, so every row starts on a 16-byte boundary; x is
 // 16-byte aligned.  A row chunk is copied up to cols rounded up to 4
 // elements (at most `ld`), but no value at or past `cols` is ever used, and
-// x is never read at or past `cols`.  In a batch, stride_m, ldx and ldy keep
-// every M_b and X[b] 16-byte aligned (multiples of 4 elements); the shared
-// kernel asks nothing of X but a unit column stride, and reads no X element
-// at or past cols.  The kernels allocate nothing and do not synchronise;
+// x is never read at or past `cols`.  In a batch, stride_m keeps every M_b
+// 16-byte aligned (a multiple of 4 elements); both batch kernels ask
+// nothing of X but a unit column stride, and read no X element at or past
+// cols.  The kernels allocate nothing and do not synchronise;
 // they run on the caller's stream.
 
 #include "pipeline.cuh"
@@ -137,8 +158,7 @@ struct Tiles {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
-                    T* __restrict__ y, int rows, int cols, int64_t ld,
-                    int batch, int64_t stride_m, int64_t ldx, int64_t ldy) {
+                    T* __restrict__ y, int rows, int cols, int64_t ld) {
   using V = typename Vec<T>::type;
   constexpr int W = Vec<T>::width;
   extern __shared__ __align__(128) unsigned char ring[];
@@ -160,20 +180,17 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
   const int row_bytes = tl.row_bytes, chunks = tl.chunks, stride = tl.stride;
   const int per_warp = tl.per_warp, tile_rows = tl.tile_rows;
   const int tiles = tl.count;
-  const int64_t work = static_cast<int64_t>(tiles) * batch;  // (b, tile)
 
   if (warp == kConsumerWarps) {  // the producer
     if (lane != 0) return;
     const int64_t ld_bytes = ld * static_cast<int64_t>(sizeof(T));
     const bool packed = chunks == 1 && ld_bytes == row_bytes;
     uint32_t k = 0;
-    for (int64_t w = blockIdx.x; w < work; w += gridDim.x) {
-      const int64_t b = batch == 1 ? 0 : w / tiles;
-      const int r0 = static_cast<int>(w - b * tiles) * tile_rows;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int r0 = t * tile_rows;
       const int nr = min(tile_rows, rows - r0);
       const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(M + b * stride_m) +
-          r0 * ld_bytes;
+          reinterpret_cast<const unsigned char*>(M) + r0 * ld_bytes;
       for (int c = 0; c < chunks; ++c, ++k) {
         const int s = k % kStages;
         mbar_wait(&empty[s], ((k / kStages) & 1) ^ 1);
@@ -199,14 +216,11 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
   // fixed butterfly ends the row.  That order depends only on cols.
   const int nvec = cols / W;        // whole vectors of a row
   const int tail = cols - nvec * W;  // elements of the partial vector
+  const V* xv = reinterpret_cast<const V*>(x);
   uint32_t k = 0;
-  for (int64_t w = blockIdx.x; w < work; w += gridDim.x) {
-    const int64_t b = batch == 1 ? 0 : w / tiles;
-    const int r0 = static_cast<int>(w - b * tiles) * tile_rows;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int r0 = t * tile_rows;
     const int nr = min(tile_rows, rows - r0);
-    const T* xb = x + b * ldx;
-    const V* xv = reinterpret_cast<const V*>(xb);
-    T* yb = y + b * ldy;
     T acc = T(0);  // the running sum of a row that spans chunks
     for (int c = 0; c < chunks; ++c, ++k) {
       const int s = k % kStages;
@@ -234,12 +248,12 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
         if (tail_here) {
           const T* se = reinterpret_cast<const T*>(sr + (nvec - v0));
           for (int e = 0; e < tail; ++e) {
-            a = fma(se[e], __ldg(xb + nvec * W + e), a);
+            a = fma(se[e], __ldg(x + nvec * W + e), a);
           }
         }
         if (chunks == 1) {
           a = warp_sum(a);
-          if (lane == 0) yb[r0 + j] = a;
+          if (lane == 0) y[r0 + j] = a;
         } else {
           acc = a;
         }
@@ -249,16 +263,15 @@ dense_matvec_kernel(const T* __restrict__ M, const T* __restrict__ x,
     }
     if (chunks != 1 && warp < nr) {  // a row that spans chunks (or cols 0)
       acc = warp_sum(acc);
-      if (lane == 0) yb[r0 + warp] = acc;
+      if (lane == 0) y[r0 + warp] = acc;
     }
   }
 }
 
 template <typename T>
 int launch(const T* M, const T* x, T* y, int rows, int cols, int64_t ld,
-           int batch, int64_t stride_m, int64_t ldx, int64_t ldy,
            void* stream) {
-  if (rows <= 0 || batch <= 0) return 0;
+  if (rows <= 0) return 0;
   static int smem_done[kMaxDevices] = {};
   const cudaError_t err =
       allow_dynamic_smem(dense_matvec_kernel<T>, kRingBytes, smem_done);
@@ -266,12 +279,10 @@ int launch(const T* M, const T* x, T* y, int rows, int cols, int64_t ld,
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const Tiles tiles(rows, cols, static_cast<int>(sizeof(T)));
-  const int64_t work = static_cast<int64_t>(tiles.count) * batch;
-  const unsigned blocks =
-      static_cast<unsigned>(std::min<int64_t>(work, sms));
+  const unsigned blocks = static_cast<unsigned>(std::min(tiles.count, sms));
   dense_matvec_kernel<T><<<blocks, kThreads, kRingBytes,
                            static_cast<cudaStream_t>(stream)>>>(
-      M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy);
+      M, x, y, rows, cols, ld);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -627,6 +638,170 @@ int launch_shared(const T* M, const T* x, T* y, int rows, int cols,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The stack kernel (stride_m != 0; see the batch axis above).
+// ---------------------------------------------------------------------------
+
+constexpr int kStackMaxSlots = 16;  // the stage barriers a block has
+
+// Make the barrier's current phase wait for this thread's cp.async copies
+// issued so far: an arrival (counted in the barrier's init count) that
+// lands when they have.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar)) : "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+dense_matvec_stack_kernel(const T* __restrict__ M, const T* __restrict__ x,
+                          T* __restrict__ y, int rows, int cols, int64_t ld,
+                          int64_t stride_m, int64_t ldx, int64_t ldy, int RB,
+                          int chunk, int slots) {
+  using V = typename Vec<T>::type;
+  constexpr int W = Vec<T>::width;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kStackMaxSlots];
+  __shared__ __align__(8) uint64_t empty[kStackMaxSlots];
+  __shared__ __align__(8) uint64_t x_full;
+
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int item = static_cast<int>(sizeof(T));
+  const int row_bytes = ((cols + 3) & ~3) * item;
+  const bool whole = row_bytes <= chunk;
+  const int chunks = whole ? 1 : (row_bytes + chunk - 1) / chunk;
+  const int stride = min(row_bytes, chunk);  // a row's bytes in a stage
+  // A stage: 8 rows' parts, then (longer rows) the same part of X[b].
+  const int stage_bytes = (kConsumerWarps + (whole ? 0 : 1)) * stride;
+  unsigned char* const ring = smem + (whole ? stride : 0);  // after X[b]
+  const int row_blocks = (rows + RB - 1) / RB;
+  const int64_t b = blockIdx.x / row_blocks;
+  const int r0 = static_cast<int>(blockIdx.x % row_blocks) * RB;
+  const int nr = min(RB, rows - r0);
+  const int items = (nr + kConsumerWarps - 1) / kConsumerWarps * chunks;
+  const T* xb = x + b * ldx;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&full[s], whole ? 1 : 1 + kWarp);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init(&x_full, kWarp);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer warp
+    const int64_t ld_bytes = ld * item;
+    const unsigned char* kb =
+        reinterpret_cast<const unsigned char*>(M + b * stride_m) +
+        r0 * ld_bytes;
+    if (whole) {  // X[b] whole, once, at any stride and alignment
+      T* xs = reinterpret_cast<T*>(smem);
+      for (int k = lane; k < cols; k += kWarp) cp_async(xs + k, xb + k);
+      cp_async_arrive(&x_full);
+    }
+    for (int i = 0; i < items; ++i) {
+      const int s = i % slots;
+      const int g = i / chunks, c = i - g * chunks;
+      const int c0 = c * chunk;
+      const int ng = min(kConsumerWarps, nr - g * kConsumerWarps);
+      const uint32_t bytes = min(chunk, row_bytes - c0);
+      unsigned char* dst = ring + s * stage_bytes;
+      if (lane == 0) mbar_wait(&empty[s], ((i / slots) & 1) ^ 1);
+      __syncwarp();
+      if (!whole) {  // this part of X[b], beside K's
+        const int e0 = c0 / item, e1 = min(cols, e0 + chunk / item);
+        T* xs = reinterpret_cast<T*>(dst + kConsumerWarps * stride);
+        for (int k = e0 + lane; k < e1; k += kWarp) {
+          cp_async(xs + (k - e0), xb + k);
+        }
+        cp_async_arrive(&full[s]);
+      }
+      if (lane == 0) mbar_arrive_expect_tx(&full[s], bytes * ng);
+      __syncwarp();
+      if (bytes == 0) continue;  // cols == 0: the phase completes empty
+      const unsigned char* src = kb + g * kConsumerWarps * ld_bytes + c0;
+      // One copy where the group's rows lie back to back, else one a row.
+      if (whole && ld_bytes == row_bytes) {
+        if (lane == 0) bulk_copy(dst, src, bytes * ng, &full[s]);
+      } else if (lane < ng) {
+        bulk_copy(dst + lane * stride, src + lane * ld_bytes, bytes,
+                  &full[s]);
+      }
+    }
+    return;
+  }
+
+  // The consumers: warp w owns row 8 g + w of each group g, its partials
+  // carried over the row's parts (each a multiple of 32 vectors, so lane L
+  // keeps partial L).
+  const int nvec = cols / W;
+  const int tail = cols - nvec * W;
+  const int nlive = nvec + (tail ? 1 : 0);
+  const int cvec = stride / 16;  // vectors of a stage's row part
+  if (whole) mbar_wait(&x_full, 0);
+  T acc = T(0);
+  for (int i = 0; i < items; ++i) {
+    const int s = i % slots;
+    const int g = i / chunks, c = i - g * chunks;
+    const int j = g * kConsumerWarps + warp;  // the row in the tile
+    mbar_wait(&full[s], (i / slots) & 1);
+    if (j < nr) {  // warp-uniform
+      const unsigned char* st = ring + s * stage_bytes;
+      const V* kr = reinterpret_cast<const V*>(st + warp * stride);
+      const V* xr = reinterpret_cast<const V*>(
+          whole ? smem : st + kConsumerWarps * stride);
+      const int v0 = c * cvec;
+      const int count = min(cvec, nlive - v0);
+      if (c == 0) acc = T(0);
+      for (int lv = lane; lv < count; lv += kWarp) {
+        acc = dot_acc_n(kr[lv], xr[lv], acc, v0 + lv < nvec ? W : tail);
+      }
+      if (c == chunks - 1) {
+        acc = warp_sum(acc);
+        if (lane == 0) y[b * ldy + r0 + j] = acc;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+}
+
+// Checks the wrapper's plan against what the kernel assumes, then launches
+// one block a tile of RB rows of one element.
+template <typename T>
+int launch_stack(const T* M, const T* x, T* y, int rows, int cols,
+                 int64_t ld, int batch, int64_t stride_m, int64_t ldx,
+                 int64_t ldy, int RB, int chunk, int slots, void* stream) {
+  if (rows <= 0 || batch <= 0) return 0;
+  const int64_t row_bytes = ((static_cast<int64_t>(cols) + 3) & ~3) *
+                            static_cast<int64_t>(sizeof(T));
+  const bool whole = row_bytes <= chunk;
+  const int64_t stride = std::min<int64_t>(row_bytes, chunk);
+  const int64_t smem =
+      (whole ? stride : 0) +
+      static_cast<int64_t>(slots) * (kConsumerWarps + (whole ? 0 : 1)) *
+          stride;
+  const int64_t blocks = static_cast<int64_t>((rows + RB - 1) / RB) * batch;
+  if (RB <= 0 || chunk <= 0 || chunk % 16 || slots < 1 ||
+      slots > kStackMaxSlots || smem > kMaxSmem ||
+      row_bytes >= (int64_t{1} << 31) || blocks >= (int64_t{1} << 31) ||
+      (!whole && chunk % (16 * kWarp))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static int smem_done[kMaxDevices] = {};
+  const cudaError_t err = allow_dynamic_smem(dense_matvec_stack_kernel<T>,
+                                             static_cast<int>(smem),
+                                             smem_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_matvec_stack_kernel<T><<<static_cast<unsigned>(blocks), kThreads,
+                                 static_cast<int>(smem),
+                                 static_cast<cudaStream_t>(stream)>>>(
+      M, x, y, rows, cols, ld, stride_m, ldx, ldy, RB, chunk, slots);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -634,18 +809,19 @@ extern "C" {
 // Each returns cudaGetLastError() right after the launch (0 = launched).
 int tpdlp_dense_matvec_f32(const float* M, const float* x, float* y, int rows,
                            int cols, int64_t ld, void* stream) {
-  return launch<float>(M, x, y, rows, cols, ld, 1, 0, 0, 0, stream);
+  return launch<float>(M, x, y, rows, cols, ld, stream);
 }
 
 int tpdlp_dense_matvec_f64(const double* M, const double* x, double* y,
                            int rows, int cols, int64_t ld, void* stream) {
-  return launch<double>(M, x, y, rows, cols, ld, 1, 0, 0, 0, stream);
+  return launch<double>(M, x, y, rows, cols, ld, stream);
 }
 
-// Y[b] = M_b X[b] for b < batch in one launch (see the batch axis above):
-// a stack (stride_m != 0) walks (element, tile) pairs; a shared K
-// (stride_m == 0) runs dense_matvec_shared_kernel by the wrapper's plan
-// (G, RB, EB, chunk, stages; unused for a stack).
+// Y[b] = M_b X[b] for b < batch in one launch (see the batch axis above),
+// by the wrapper's plan: a shared K (stride_m == 0) runs
+// dense_matvec_shared_kernel (G, RB, EB, chunk, stages); a stack runs
+// dense_matvec_stack_kernel (RB, chunk and `stages` slots; G and EB
+// unused).
 int tpdlp_dense_matvec_batch_f32(const float* M, const float* x, float* y,
                                  int rows, int cols, int64_t ld, int batch,
                                  int64_t stride_m, int64_t ldx, int64_t ldy,
@@ -655,8 +831,8 @@ int tpdlp_dense_matvec_batch_f32(const float* M, const float* x, float* y,
     return launch_shared<float>(M, x, y, rows, cols, ld, batch, ldx, ldy, G,
                                 RB, EB, chunk, stages, stream);
   }
-  return launch<float>(M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy,
-                       stream);
+  return launch_stack<float>(M, x, y, rows, cols, ld, batch, stride_m, ldx,
+                             ldy, RB, chunk, stages, stream);
 }
 
 int tpdlp_dense_matvec_batch_f64(const double* M, const double* x, double* y,
@@ -668,8 +844,8 @@ int tpdlp_dense_matvec_batch_f64(const double* M, const double* x, double* y,
     return launch_shared<double>(M, x, y, rows, cols, ld, batch, ldx, ldy, G,
                                  RB, EB, chunk, stages, stream);
   }
-  return launch<double>(M, x, y, rows, cols, ld, batch, stride_m, ldx, ldy,
-                        stream);
+  return launch_stack<double>(M, x, y, rows, cols, ld, batch, stride_m, ldx,
+                              ldy, RB, chunk, stages, stream);
 }
 
 const char* tpdlp_cuda_error_string(int code) {

@@ -433,8 +433,7 @@ def _padded_rows(X: torch.Tensor) -> torch.Tensor:
     """X (B, c), contiguous, its row stride a multiple of ROW_ALIGN (zero
     columns appended where c is not) and its base 16-byte aligned (a copy
     of a view that starts off the alignment), so that every X[b] is
-    16-byte aligned: K1's vector loads (a stack) and K2's bulk copies of x
-    need it."""
+    16-byte aligned, as K2's bulk copies of x need."""
     X = X.contiguous()
     c = X.shape[1]
     if c % ROW_ALIGN:
@@ -550,8 +549,66 @@ def shared_plan(rows: int, cols: int, batch: int, item: int,
                       stages * (RB + EB) * min(row_bytes, chunk))
 
 
-#: A stack's launch: the plan's fields are not read.
-_NO_PLAN = SharedPlan(0, 0, 0, 0, 0, 0, 0, 0)
+#: The stack kernel's stages (csrc/dense_matvec.cu:
+#: dense_matvec_stack_kernel): whole rows in tiles of at most
+#: _STACK_WHOLE_SMEM bytes (four blocks an SM) and at most _STACK_MAX_SLOTS
+#: stages; rows longer than _WHOLE_ROW_BYTES in _STACK_CHUNK_BYTES parts (a
+#: multiple of 32 vectors) through _STACK_LONG_SLOTS stages (two blocks an
+#: SM).
+_STACK_WHOLE_SMEM = 56 * 1024
+_STACK_MAX_SLOTS = 16
+_STACK_CHUNK_BYTES = 4096
+_STACK_LONG_SLOTS = 3
+
+
+class StackPlan(NamedTuple):
+    """A launch of the stack kernel: tiles of RB rows of one element (a
+    block each, row_blocks of them an element), `chunk` bytes of a row a
+    stage (the whole row when it is at most _WHOLE_ROW_BYTES), `slots`
+    stages of 8 rows, `smem` bytes of shared memory a block."""
+    RB: int
+    chunk: int
+    slots: int
+    row_blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def stack_plan(rows: int, cols: int, batch: int, item: int,
+               sms: int) -> StackPlan:
+    """The stack kernel's tiles for `batch` distinct (rows, cols) matrices
+    of `item`-byte elements on a card of `sms` SMs: a fixed rule, a
+    function of these numbers alone.
+
+    Each element's rows are cut into as many tiles as one wave of blocks
+    gives it (at least one, of at least 8 rows), evened out: four blocks an
+    SM for whole rows (at most _WHOLE_ROW_BYTES), two for longer ones.
+    Whole rows: X[b] and then a stage a group of 8 rows, every stage of
+    the tile in flight where _STACK_WHOLE_SMEM holds them (else a ring of
+    as many as it holds, at least two, at most _STACK_MAX_SLOTS).  Longer rows: tiles of
+    whole groups of 8 rows, each row in _STACK_CHUNK_BYTES parts, a stage
+    8 rows' part and X's, _STACK_LONG_SLOTS stages."""
+    row_bytes = -(-cols // 4) * 4 * item
+    whole = row_bytes <= _WHOLE_ROW_BYTES
+    tiles = max(1, (4 if whole else 2) * sms // max(1, batch))
+    RB = max(min(rows, 8), -(-rows // tiles))
+    if not whole:
+        RB = -(-RB // 8) * 8
+    RB = -(-rows // -(-rows // RB))  # the tiles evened out
+    if whole:
+        chunk = max(row_bytes, 16)
+        stage = 8 * row_bytes
+        groups = -(-RB // 8)
+        slots = max(min(groups, 2), min(
+            groups, _STACK_MAX_SLOTS,
+            (_STACK_WHOLE_SMEM - row_bytes) // max(stage, 1)))
+        smem = row_bytes + slots * stage
+    else:
+        RB = -(-RB // 8) * 8
+        chunk = _STACK_CHUNK_BYTES
+        slots = min(-(-RB // 8) * -(-row_bytes // chunk), _STACK_LONG_SLOTS)
+        smem = slots * 9 * chunk
+    return StackPlan(RB, chunk, slots, -(-rows // RB), smem)
 
 _sm_counts: dict = {}
 
@@ -574,8 +631,8 @@ def dense_matvec_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     CPU tensors take `dense_matvec_batch_plain`.  CUDA tensors launch, on
     the current stream, the shared-K kernel by `shared_plan` where the
     matrix stride is 0 (one K, read once for a tile of elements), else the
-    dense_matvec kernel over its batch axis (csrc/dense_matvec.cu); the
-    call does not synchronise."""
+    stack kernel by `stack_plan` (csrc/dense_matvec.cu); both load X's rows
+    themselves, at any row stride.  The call does not synchronise."""
     if M.device.type == "cpu" and X.device.type == "cpu":
         return dense_matvec_batch_plain(M, X)
     _check_batch("dense_matvec_batch", (M,), X, 2)
@@ -599,20 +656,20 @@ def dense_matvec_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     Y = torch.empty((B, rows), dtype=M.dtype, device=M.device)
     if B == 0 or rows == 0:
         return Y
+    sms = _sm_count(M.device)
     if stride_m == 0:
-        plan = shared_plan(rows, cols, B, M.element_size(),
-                           _sm_count(M.device))
-        # The shared-K kernel loads X's rows itself, at any row stride.
-        Xp = X if X.stride(-1) == 1 or cols <= 1 else X.contiguous()
+        plan = shared_plan(rows, cols, B, M.element_size(), sms)[:5]
     else:
-        plan, Xp = _NO_PLAN, _padded_rows(X)
+        p = stack_plan(rows, cols, B, M.element_size(), sms)
+        plan = (0, p.RB, 1, p.chunk, p.slots)
+    Xp = X if X.stride(-1) == 1 or cols <= 1 else X.contiguous()
     lib = _load()
     fn = (lib.tpdlp_dense_matvec_batch_f32 if M.dtype == torch.float32
           else lib.tpdlp_dense_matvec_batch_f64)
     stream = torch.cuda.current_stream(M.device).cuda_stream
     with torch.cuda.device(M.device):
         code = fn(M.data_ptr(), Xp.data_ptr(), Y.data_ptr(), rows, cols, ld,
-                  B, stride_m, Xp.stride(0), rows, *plan[:5], stream)
+                  B, stride_m, Xp.stride(0), rows, *plan, stream)
     _check(code, "dense_matvec_batch launch")
     launches["dense_matvec_batch"] += 1
     return Y
