@@ -34,11 +34,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              and on random slabs at windows of 128 and 2048; beside it a
              torch CSR product of the same K is timed as a yardstick.
              csr_matvec runs on the CSR K and K' of mittelmann-l (fp32,
-             fp64) and of the sparse-1M instance (fp32), beside cuSPARSE's
-             product of the same tensors (torch.mv), whose two repeats are
-             also compared bit for bit.
+             fp64), of the sparse-1M instance and of the banded 100k
+             instance (fp32), beside cuSPARSE's product of the same tensors
+             (torch.mv), whose two repeats are also compared bit for bit;
+             each row names the kernel's path and plan.  Then random
+             4-byte reads of x at sparse-1M's two lengths, by
+             `index_select`, beside the same reads in order: the card's
+             rate for the gather.
              batch_kernels: each kernel's batch axis at the fleets' shapes
-             (and mittelmann-s x 8 on the shared-K kernel), every element
+             (and mittelmann-s x 8 on the shared-K kernel, banded 100k x 8
+             on the CSR kernel's ring), every element
              bit for bit a single launch, the same times and yardsticks.
 4. solve   — the dense path: mittelmann-s and mittelmann-l at full size in
              fp32, tol 1e-4, Ruiz + adaptive steps + primal-weight update
@@ -271,6 +276,10 @@ ORACLE_WORKERS = 3
 #: not band-like (generate_feasible_lp arguments).
 SPARSE_1M = dict(n=1_000_000, m_ineq=300_000, m_eq=100_000, density=2.5e-5,
                  seed=0)
+#: The gather probe: random reads of an fp32 x of K''s and K's x length on
+#: sparse-1M (1.6 MB and 4 MB), as many as the instance's nonzeros.
+GATHER_SIZES = (400_000, 1_000_000)
+GATHER_READS = 10_000_000
 #: An LP with 13 empty rows and 411 empty columns in K, whose empty
 #: segments stop the JAX package's sparse operator (-inf norms) at k = 40.
 EMPTY_SEGMENTS = dict(n=2000, m_ineq=600, m_eq=200, density=0.002, seed=0)
@@ -403,7 +412,7 @@ _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 _KERNEL_NAME = re.compile(
-    r"\d([a-z_]+_kernel)I([fd])(?:Li(\d+)E)?(?:Lb([01])E)?E")
+    r"\d([a-z_]+_kernel)I([fd])((?:Li\d+E)*)(?:Lb([01])E)?E")
 
 
 def ptxas_report(K) -> list:
@@ -423,9 +432,10 @@ def ptxas_report(K) -> list:
     for line in "\n".join(logs).splitlines():
         if m := _PTXAS_ENTRY.search(line):
             k = _KERNEL_NAME.search(m.group(1))
+            ints = re.findall(r"Li(\d+)E", k.group(3)) if k else []
             name = m.group(1) if k is None else (
                 f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
-                f"{', ' + k.group(3) if k.group(3) else ''}"
+                f"{''.join(', ' + i for i in ints)}"
                 f"{', batched' if k.group(4) == '1' else ''}>")
             cur = {"kernel": name}
             out.append(cur)
@@ -1220,21 +1230,50 @@ def _csr_bound(rows, cols, nnz, item, rates, dtype):
                   2 * nnz, rates, dtype)
 
 
-def csr_kernels_phase(dev, rates, p_l, p_1m):
+def gather_rates(dev, flush):
+    """The card's rate for random 4-byte reads: GATHER_READS reads of an
+    fp32 x of each GATHER_SIZES length (K''s and K's x of sparse-1M) by
+    int32 index, cold, against the same reads in order (the index stream
+    and the output alone)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    out = []
+    for n in GATHER_SIZES:
+        x = torch.randn((n,), generator=gen, device=dev)
+        idx = torch.randint(0, n, (GATHER_READS,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        seq = (torch.arange(GATHER_READS, device=dev) % n).to(torch.int32)
+        rand_ms = time_launches(lambda: x.index_select(0, idx), flush)
+        seq_ms = time_launches(lambda: x.index_select(0, seq), flush)
+        row = {"x_bytes": 4 * n, "reads": GATHER_READS,
+               "random_ms": rand_ms, "in_order_ms": seq_ms,
+               "random_reads_per_s": GATHER_READS / rand_ms * 1e3}
+        emit("gather_rate", **row)
+        out.append(row)
+        del x, idx, seq
+    return out
+
+
+def csr_kernels_phase(dev, rates, p_l, p_1m, p_band):
     """csr_matvec against its twin on the sparse path's matrices: K and K'
-    of mittelmann-l (fp32 and fp64) and of the sparse-1M instance (fp32),
-    cold and in a K/K' loop, beside cuSPARSE's product of the same CSR
-    tensor (torch.mv), whose repeats are also compared bit for bit."""
+    of mittelmann-l (fp32 and fp64), of the sparse-1M instance and of the
+    banded 100k instance (fp32, the matrix "auto" gives CSR), cold and in
+    a K/K' loop, beside cuSPARSE's product of the same CSR tensor
+    (torch.mv), whose repeats are also compared bit for bit; each row with
+    the kernel's plan (its path and ring).  Then the card's rate for
+    random 4-byte gathers (gather_rates)."""
     from tpdlp_torch.ops import _kernels as K
     from tpdlp_torch.ops.sparse import SparseOp
 
     flush = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5678)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for inst, prob, dtypes in (("mittelmann-l", p_l,
                                 (torch.float32, torch.float64)),
-                               ("sparse-1M", p_1m, (torch.float32,))):
+                               ("sparse-1M", p_1m, (torch.float32,)),
+                               ("banded-100k", p_band, (torch.float32,))):
         for dtype in dtypes:
             op = SparseOp.from_scipy(prob.K, dtype, device=dev)
             pair = []
@@ -1263,10 +1302,13 @@ def csr_kernels_phase(dev, rates, p_l, p_1m):
                 bound, bound_by = _csr_bound(m, n, val.numel(),
                                              val.element_size(), rates,
                                              dtype)
+                plan = K.csr_plan(m, val.numel(), val.element_size(), 1,
+                                  sms)
                 row = {
                     "case": f"{inst} {label}", "shape": [m, n],
                     "nnz": int(val.numel()), "max_row": longest,
-                    "group": K.csr_group(m, val.numel()),
+                    "group": plan.G, "path": plan.path,
+                    "plan": plan._asdict(),
                     "dtype": str(dtype).replace("torch.", ""),
                     "kernel_ms": time_launches(
                         lambda: K.csr_matvec(crow, col, val, x), flush),
@@ -1302,9 +1344,10 @@ def csr_kernels_phase(dev, rates, p_l, p_1m):
             a[5].update(loop)
             b[5].update(loop)
             del op, pair, a, b
+    gather = gather_rates(dev, flush)
     del flush
     torch.cuda.empty_cache()
-    return rows
+    return rows, gather
 
 
 def _main_cfg():
@@ -1983,8 +2026,12 @@ def _batch_csr_side(mat, B):
     crow, col, val = mat.crow_indices(), mat.col_indices(), mat.values()
     rows, cols = mat.shape
     nnz = val.numel()
+    plan = K.csr_plan(rows, nnz, val.element_size(), B,
+                      torch.cuda.get_device_properties(
+                          val.device).multi_processor_count)
     return dict(
         cols=cols, inner=int(crow.diff().max()), kernel="csr_matvec",
+        plan=plan._asdict(),
         batch=lambda X: K.csr_matvec_batch(crow, col, val, X),
         single=lambda b, x: K.csr_matvec(crow, col, val, x),
         plain=lambda X: K.csr_matvec_batch_plain(crow, col, val, X),
@@ -1995,9 +2042,10 @@ def _batch_csr_side(mat, B):
         flops=2 * B * nnz, shape=[rows, cols], nnz=nnz)
 
 
-def batch_kernels_phase(dev, rates, fleets, p_s):
+def batch_kernels_phase(dev, rates, fleets, p_s, p_band):
     """Each kernel's batch axis at this slice's shapes (the fleets' K and
-    K', and mittelmann-s x SHARED_MS_B): against its twin (error,
+    K', mittelmann-s x SHARED_MS_B and banded 100k x FLEET_SPARSE, the CSR
+    batch axis on its ring route): against its twin (error,
     bit-identical repeats), every element bit for bit a single launch on
     it, cold and loop times by CUDA events beside the twin and the one
     PyTorch call that computes the same function (torch.bmm for a stack,
@@ -2049,6 +2097,10 @@ def batch_kernels_phase(dev, rates, fleets, p_s):
     cases.append(("mittelmann-l shared", FLEET_SPARSE, torch.float32,
                   _batch_csr_side(sop.mat, FLEET_SPARSE),
                   _batch_csr_side(sop.mat_t, FLEET_SPARSE)))
+    bsop = SparseOp.from_scipy(p_band.K, torch.float32, device=dev)
+    cases.append(("banded-100k shared", FLEET_SPARSE, torch.float32,
+                  _batch_csr_side(bsop.mat, FLEET_SPARSE),
+                  _batch_csr_side(bsop.mat_t, FLEET_SPARSE)))
 
     rows = []
     for label, B, dtype, *sides in cases:
@@ -2126,7 +2178,7 @@ def batch_kernels_phase(dev, rates, fleets, p_s):
         ra.update(loop)
         rb.update(loop)
         del pair, a, b, xa, xb, la, lb
-    del cases, st, bop, sop, flush
+    del cases, st, bop, sop, bsop, flush
     torch.cuda.empty_cache()
     return rows
 
@@ -2794,10 +2846,10 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
     out["dense_rows"] = phase("kernels", kernels_phase, dev, rates)
     out["band_rows"] = phase("band_kernels", band_kernels_phase, dev, rates,
                              p_band)
-    out["csr_rows"] = phase("csr_kernels", csr_kernels_phase, dev, rates,
-                            p_l, p_1m)
+    out["csr_rows"], out["gather"] = phase("csr_kernels", csr_kernels_phase,
+                                           dev, rates, p_l, p_1m, p_band)
     out["batch_rows"] = phase("batch_kernels", batch_kernels_phase, dev,
-                              rates, fleets, p_s)
+                              rates, fleets, p_s, p_band)
     oracles = {"refine": highs.submit(highs_objective, p_s),
                "refine_band": highs.submit(highs_objective, p_b8)}
     out["dense_runs"], out["dense_launches"] = phase("solve", solve_phase,
@@ -2892,10 +2944,21 @@ def _summary(out):
                          csr_head),
          "replaces_note": "SparseOp.mv, an XLA BCOO product: no Pallas "
                           "kernel",
+         "design": "two routes in one summation order: where a "
+                   "persistent wave gives every block at least four "
+                   "stages, each block's nonzeros through a ring of "
+                   "bulk-copied stages, four rows a lane group; else one "
+                   "row a lane group straight from device memory",
          "sparse_1m": [{k: r[k] for k in (
              "case", "kernel_ms", "library_ms", "bound_ms",
-             "kernel_loop_ms", "library_loop_ms")}
+             "kernel_loop_ms", "library_loop_ms", "path")}
              for r in out["csr_rows"] if r["case"].startswith("sparse-1M")],
+         "banded_100k": [{k: r[k] for k in (
+             "case", "kernel_ms", "library_ms", "plain_ms", "bound_ms",
+             "kernel_loop_ms", "library_loop_ms", "path")}
+             for r in out["csr_rows"]
+             if r["case"].startswith("banded-100k")],
+         "gather_rate": out["gather"],
          "launches_sparse_1m": out["csr_launches_1m"],
          "shape": csr_head["shape"], "nnz": csr_head["nnz"]},
         *_batch_entries(out["batch_rows"], out["fleet_launches"]),
@@ -2946,6 +3009,13 @@ def _batch_entries(rows, launches):
             entry["library_factor"] = head["kernel_ms"] / head["library_ms"]
         if kernel == "band_matvec":
             entry["library_bmm_only_ms"] = head["library_bmm_only_ms"]
+        if kernel == "csr_matvec":
+            entry["route"] = head["plan"]["path"]
+            entry["ring_rows"] = [
+                {k: r[k] for k in ("case", "kernel_ms", "library_ms",
+                                   "single_launches_ms", "bound_ms",
+                                   "kernel_loop_ms")}
+                for r in mine if r["plan"]["path"] == "ring"]
         out.append(entry)
     return out
 

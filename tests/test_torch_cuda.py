@@ -391,6 +391,127 @@ def test_csr_kernel_keeps_its_bits_on_ragged_rows_on_card(card, dtype):
                  lambda X: _kernels.csr_matvec_batch_plain(crow, col, val, X))
 
 
+def _csr_from_lengths(lens, cols, seed):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    K = sp.csr_matrix((rng.standard_normal(indptr[-1]),
+                       rng.integers(0, cols, indptr[-1]), indptr),
+                      shape=(len(lens), cols))
+    K.sort_indices()
+    return K
+
+
+def _ring_sized(K, batch, card):
+    """K, which csr_plan sends the direct route at `batch` right-hand
+    sides, stacked on itself until it goes through the ring (a wave of
+    blocks streams several stages each) at one; the copies keep K's mean
+    row length, so G, and with it every row's order, stays K's."""
+    import scipy.sparse as sp
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert _kernels.csr_plan(K.shape[0], K.nnz, 8, batch,
+                             sms).path == "direct"
+    copies = 2
+    while _kernels.csr_plan(K.shape[0] * copies, K.nnz * copies, 8, 1,
+                            sms).path != "ring":
+        copies *= 2
+    big = sp.vstack([K] * copies, format="csr")
+    assert _kernels.csr_group(big.shape[0], big.nnz) == _kernels.csr_group(
+        K.shape[0], K.nnz)
+    return big, copies
+
+
+def _ring_cases():
+    """Row lengths the ring must walk across stages: banded rows of 53-105
+    nonzeros, power-law rows up to 9000 (longer than a stage and than the
+    ring), rows of 1023 that straddle every stage edge, chunks ending on
+    empty rows."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(29)
+    n = 30_000
+    band_lens = rng.integers(53, 106, 4000)
+    banded = sp.csr_matrix(
+        (rng.standard_normal(band_lens.sum()),
+         np.concatenate([np.clip(r * 7 - 50 + np.arange(k), 0, n - 1)
+                         for r, k in enumerate(band_lens)]),
+         np.concatenate([[0], np.cumsum(band_lens)])), shape=(4000, n))
+    banded.sum_duplicates()
+    power = np.minimum((rng.pareto(1.2, 3000) * 8).astype(np.int64), 9000)
+    power[[7, 1500]] = [9000, 4100]
+    holes = rng.integers(0, 40, 5000)
+    holes[rng.random(5000) < 0.5] = 0
+    return n, [banded, _csr_from_lengths(power, n, 1),
+               _csr_from_lengths(np.full(300, 1023), n, 2),
+               _csr_from_lengths(holes, n, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_ring_matches_plain_and_repeats_on_card(card, dtype):
+    """The ring route of csrc/csr_matvec.cu on _ring_cases stacked to the
+    ring's size: the twin's values within tolerance, bit-identical
+    repeats, values and column indices from views that start off a
+    16-byte boundary giving the same bits, and every copy's rows the bits
+    of the direct route's launch on the one matrix."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(29)
+    n, mats = _ring_cases()
+    for K in mats:
+        big, copies = _ring_sized(K, 1, card)
+        x = torch.randn((n,), generator=gen, dtype=dtype, device=card)
+        crow, col, val = _csr_on_card(big, dtype, card)
+        before = _kernels.launches["csr_matvec"]
+        y = _kernels.csr_matvec(crow, col, val, x)
+        assert _kernels.launches["csr_matvec"] == before + 1
+        ref = _kernels.csr_matvec_plain(crow, col, val, x)
+        rel = float(((y - ref).abs() / (1 + ref.abs())).max())
+        assert rel < _tol(int(np.diff(K.indptr).max()), dtype), rel
+        assert torch.equal(_bits(_kernels.csr_matvec(crow, col, val, x)),
+                           _bits(y))
+        for shift in (1, 3):
+            vb = torch.zeros(val.numel() + 4, dtype=dtype, device=card)
+            cb = torch.zeros(col.numel() + 4, dtype=torch.int32,
+                             device=card)
+            v, c = vb[shift:shift + val.numel()], cb[shift:shift + col.numel()]
+            v.copy_(val)
+            c.copy_(col)
+            assert torch.equal(_bits(_kernels.csr_matvec(crow, c, v, x)),
+                               _bits(y))
+        small = _kernels.csr_matvec(*_csr_on_card(K, dtype, card), x)
+        assert torch.equal(_bits(y).view(copies, -1),
+                           _bits(small).expand(copies, -1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_ring_batch_equals_single_launches_on_card(card, dtype):
+    """The batch axis on the ring: power-law rows across stages, stacked to
+    the ring's size, at B = 8 (one tile) and 19 (a ragged tile), each
+    element bit for bit its single launch, and every copy's rows the bits
+    of the direct route's batch on the one matrix."""
+    rng = np.random.default_rng(31)
+    power = np.minimum((rng.pareto(1.2, 2000) * 8).astype(np.int64), 5000)
+    power[3] = 5000
+    K = _csr_from_lengths(power, 7000, 4)
+    big, copies = _ring_sized(K, 19, card)
+    crow, col, val = _csr_on_card(big, dtype, card)
+    small = _csr_on_card(K, dtype, card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(31)
+    for B in (8, 19):
+        X = torch.randn((B, 7000), generator=gen, dtype=dtype, device=card)
+        _per_element(
+            lambda X: _kernels.csr_matvec_batch(crow, col, val, X),
+            lambda x: _kernels.csr_matvec(crow, col, val, x), X,
+            "csr_matvec",
+            lambda X: _kernels.csr_matvec_batch_plain(crow, col, val, X))
+        Y = _kernels.csr_matvec_batch(crow, col, val, X)
+        Ys = _kernels.csr_matvec_batch(*small, X)
+        assert torch.equal(_bits(Y).view(B, copies, -1),
+                           _bits(Ys)[:, None, :].expand(B, copies, -1))
+
+
 def test_csr_kernel_rejects_what_it_does_not_take(card):
     crow = torch.tensor([0, 1], dtype=torch.int32, device=card)
     col = torch.tensor([0], dtype=torch.int32, device=card)

@@ -142,7 +142,9 @@ def _load():
             csr_args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p]
-            for fn in (lib.tpdlp_csr_matvec_f32, lib.tpdlp_csr_matvec_f64):
+            for fn in (lib.tpdlp_csr_matvec_f32, lib.tpdlp_csr_matvec_f64,
+                       lib.tpdlp_csr_matvec_ring_f32,
+                       lib.tpdlp_csr_matvec_ring_f64):
                 fn.argtypes = csr_args
                 fn.restype = ctypes.c_int
             i64, ptr = ctypes.c_int64, ctypes.c_void_p
@@ -161,6 +163,10 @@ def _load():
                     fn = getattr(lib, f"tpdlp_{kind}_matvec_batch_{t}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
+            for t in ("f32", "f64"):
+                fn = getattr(lib, f"tpdlp_csr_matvec_ring_batch_{t}")
+                fn.argtypes = batch_args["csr"]
+                fn.restype = ctypes.c_int
             lib.tpdlp_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tpdlp_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -358,6 +364,123 @@ def csr_group(rows: int, nnz: int) -> int:
     return min(32, max(2, 1 << max(mean - 1, 0).bit_length()))
 
 
+#: The csr_matvec kernel's ring (csrc/csr_matvec.cu: kConsumerWarps,
+#: kStageNnz, kStages, kBlocksPerSm, kRows, kBatchTile, kBatchBlocksPerSm):
+#: 8 consumer warps, stages of 1024 nonzeros (each the 16-byte-aligned
+#: supersets of their values and column indices), three stages, four blocks
+#: an SM and four rows a lane group for a single vector; the batch axis in
+#: tiles of 8 elements, one row a lane group, two blocks an SM.  A matrix
+#: takes the ring when a persistent wave gives every block at least
+#: _CSR_RING_MIN_STAGES stages, else the direct route (kDirectThreads
+#: threads a block, one row a lane group).
+_CSR_WARPS = 8
+_CSR_STAGE_NNZ = 1024
+_CSR_STAGES = 3
+_CSR_BLOCKS_PER_SM = 4
+_CSR_ROWS = 4
+_CSR_BATCH_TILE = 8
+_CSR_BATCH_BLOCKS_PER_SM = 2
+_CSR_RING_MIN_STAGES = 4
+_CSR_DIRECT_THREADS = 256
+
+
+class CsrPlan(NamedTuple):
+    """A launch of the csr_matvec kernel.  `path` is its route: "ring"
+    (nonzeros streamed through shared memory) or "direct" (loaded straight
+    from device memory).  G lanes a row, R rows a lane group at once,
+    chunks of `chunk_rows` rows (`chunks` of them an element tile of
+    `tile` elements, `tiles` tiles), `grid` blocks, stages of `stage_nnz`
+    nonzeros in a ring of `stages`, `smem` bytes of ring a block.  The
+    direct route's chunk is a block's rows (no stage, no ring)."""
+    path: str
+    G: int
+    R: int
+    chunk_rows: int
+    chunks: int
+    tile: int
+    tiles: int
+    grid: int
+    stage_nnz: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def csr_ring_plan(rows: int, nnz: int, item: int, batch: int,
+                  sms: int) -> CsrPlan:
+    """The ring route's launch for `rows` rows and `nnz` nonzeros of
+    `item`-byte values, `batch` right-hand sides (1: the single-vector
+    launch) on a card of `sms` SMs: the rule the kernel's launcher
+    applies, a function of these numbers alone.  A chunk is R rows for
+    each lane group of the consumer warps (csr_chunks); the grid is
+    persistent, at most a wave, each block a contiguous run of (tile,
+    chunk) items (csr_block_segments)."""
+    G = csr_group(rows, nnz)
+    tile = 1 if batch == 1 else _CSR_BATCH_TILE
+    R = _CSR_ROWS if tile == 1 else 1
+    chunk_rows = _CSR_WARPS * R * (32 // G)
+    chunks = -(-rows // chunk_rows)
+    tiles = -(-batch // tile)
+    per_sm = _CSR_BLOCKS_PER_SM if tile == 1 else _CSR_BATCH_BLOCKS_PER_SM
+    grid = min(chunks * tiles, per_sm * sms)
+    stage = 2 * 16 + _CSR_STAGE_NNZ * (item + 4)
+    return CsrPlan("ring", G, R, chunk_rows, chunks, tile, tiles, grid,
+                   _CSR_STAGE_NNZ, _CSR_STAGES, _CSR_STAGES * stage)
+
+
+@functools.lru_cache(maxsize=1024)
+def csr_plan(rows: int, nnz: int, item: int, batch: int,
+             sms: int) -> CsrPlan:
+    """The csr_matvec kernel's route and launch: the ring (csr_ring_plan)
+    when a persistent wave of its blocks would stream at least
+    _CSR_RING_MIN_STAGES stages each (nonzeros a tile times tiles), else
+    the direct route, a block of _CSR_DIRECT_THREADS threads for every
+    256 / G (element, row) pairs.  Both routes sum in the same order."""
+    ring = csr_ring_plan(rows, nnz, item, batch, sms)
+    per_sm = _CSR_BLOCKS_PER_SM if ring.tile == 1 else (
+        _CSR_BATCH_BLOCKS_PER_SM)
+    if nnz * ring.tiles >= (_CSR_RING_MIN_STAGES * _CSR_STAGE_NNZ * per_sm
+                            * sms):
+        return ring
+    per_block = _CSR_DIRECT_THREADS // ring.G
+    blocks = -(-rows * batch // per_block)
+    return CsrPlan("direct", ring.G, 1, per_block, blocks, 1, batch, blocks,
+                   0, 0, 0)
+
+
+def csr_chunks(crow, chunk_rows: int) -> list:
+    """The kernel's chunks of a CSR matrix with row offsets `crow`: (first
+    row, end row, first nonzero, end nonzero) of each, in order.  A chunk
+    is `chunk_rows` whole rows (the ring plan's: a function of the row
+    count, the nonzeros and the batch; the last one shorter), so chunks start on
+    row boundaries and depend on crow alone, never on the grid; its
+    nonzeros are one contiguous span."""
+    crow = [int(v) for v in crow]
+    rows = len(crow) - 1
+    return [(r, min(r + chunk_rows, rows), crow[r],
+             crow[min(r + chunk_rows, rows)])
+            for r in range(0, rows, chunk_rows)]
+
+
+def csr_block_segments(plan: CsrPlan, rows: int, block: int) -> list:
+    """Block `block`'s segments, in the kernel's order: (element tile,
+    first row, end row) runs of whole chunks, one tile each."""
+    work = plan.chunks * plan.tiles
+    w, end = work * block // plan.grid, work * (block + 1) // plan.grid
+    out = []
+    while w < end:
+        t = w // plan.chunks
+        last = min(end, (t + 1) * plan.chunks)
+        out.append((t, (w - t * plan.chunks) * plan.chunk_rows,
+                    min(rows, (last - t * plan.chunks) * plan.chunk_rows)))
+        w = last
+    return out
+
+
+#: The C entry points' infix of each route.
+_CSR_ENTRY = {"ring": "_ring", "direct": ""}
+
+
 def csr_matvec_plain(crow: torch.Tensor, col: torch.Tensor,
                      val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = M x for the CSR arrays of M, in val's dtype: the plain PyTorch
@@ -372,8 +495,8 @@ def csr_matvec(crow: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     offsets, col (nnz,) int32 column indices in [0, x.numel()), val (nnz,).
 
     CPU tensors take `csr_matvec_plain`.  CUDA tensors launch the
-    hand-written kernel (csrc/csr_matvec.cu) on the current stream; the
-    call does not synchronise."""
+    hand-written kernel (csrc/csr_matvec.cu) on the current stream, by the
+    route `csr_plan` picks; the call does not synchronise."""
     tensors = (crow, col, val, x)
     if all(t.device.type == "cpu" for t in tensors):
         return csr_matvec_plain(crow, col, val, x)
@@ -407,14 +530,14 @@ def csr_matvec(crow: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     y = torch.empty(rows, dtype=val.dtype, device=val.device)
     if rows == 0:
         return y
+    plan = csr_plan(rows, nnz, val.element_size(), 1, _sm_count(val.device))
     lib = _load()
-    fn = (lib.tpdlp_csr_matvec_f32 if val.dtype == torch.float32
-          else lib.tpdlp_csr_matvec_f64)
+    fn = getattr(lib, f"tpdlp_csr_matvec{_CSR_ENTRY[plan.path]}_"
+                      f"{'f32' if val.dtype == torch.float32 else 'f64'}")
     stream = torch.cuda.current_stream(val.device).cuda_stream
     with torch.cuda.device(val.device):
         code = fn(crow.data_ptr(), col.data_ptr(), val.data_ptr(),
-                  x.data_ptr(), y.data_ptr(), rows, csr_group(rows, nnz),
-                  stream)
+                  x.data_ptr(), y.data_ptr(), rows, plan.G, stream)
     _check(code, "csr_matvec launch")
     launches["csr_matvec"] += 1
     return y
@@ -784,7 +907,8 @@ def csr_matvec_batch(crow: torch.Tensor, col: torch.Tensor,
 
     CPU tensors take `csr_matvec_batch_plain`.  CUDA tensors launch the
     csr_matvec kernel over its batch axis (csrc/csr_matvec.cu) on the
-    current stream; the call does not synchronise."""
+    current stream, by the route `csr_plan` picks; the call does not
+    synchronise."""
     if all(t.device.type == "cpu" for t in (crow, col, val, X)):
         return csr_matvec_batch_plain(crow, col, val, X)
     _check_batch("csr_matvec_batch", (val, crow, col), X, 1)
@@ -807,14 +931,15 @@ def csr_matvec_batch(crow: torch.Tensor, col: torch.Tensor,
     if B == 0 or rows == 0:
         return Y
     X = X.contiguous()
+    plan = csr_plan(rows, nnz, val.element_size(), B, _sm_count(val.device))
     lib = _load()
-    fn = (lib.tpdlp_csr_matvec_batch_f32 if val.dtype == torch.float32
-          else lib.tpdlp_csr_matvec_batch_f64)
+    fn = getattr(lib, f"tpdlp_csr_matvec{_CSR_ENTRY[plan.path]}_batch_"
+                      f"{'f32' if val.dtype == torch.float32 else 'f64'}")
     stream = torch.cuda.current_stream(val.device).cuda_stream
     with torch.cuda.device(val.device):
         code = fn(crow.data_ptr(), col.data_ptr(), val.data_ptr(),
-                  X.data_ptr(), Y.data_ptr(), rows, csr_group(rows, nnz), B,
-                  X.stride(0), rows, stream)
+                  X.data_ptr(), Y.data_ptr(), rows, plan.G, B, X.stride(0),
+                  rows, stream)
     _check(code, "csr_matvec_batch launch")
     launches["csr_matvec_batch"] += 1
     return Y
