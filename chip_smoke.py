@@ -103,7 +103,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 12. cli    — `python -m tpdlp_torch.cli.main` over the port's vendored
              corpus with the reference-parity flags and the certificates,
              through the autotune (--support_sparse) and then dense: exit
-             0, and every row's status the scipy linprog verdict.
+             0, and every row's status the scipy linprog verdict (beside
+             14-16; the sweep's choice of layout is not checked, its
+             statuses are).
 13. presolve — the C++ core's g++ build timed, both engines' reductions
              per file equal; then (presolve_cli, beside 14-16) the same
              sweep (dense) with --presolve python, then cpp: linprog's
@@ -141,16 +143,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              on each rank's groups) and mittelmann-s through block-ELL
              strips: Solved; banded 100k through band strips for
              SHARD_BAND_KKT passes, each rank's peak device memory below
-             the unsharded band solve's.  On every rank the kernel's
-             launches equal the single solve's formula and the product
-             all_reduces one per product; every rank returns the same bits.
+             the unsharded band solve's (the replicated design's beside
+             it).  Each rank holds its slices of the vectors as the JAX
+             package places them (x on "col" and y on "row" in 2D,
+             strips in flat): x/C + y/R bytes or the whole / N, printed
+             beside the whole.
+             On every rank the kernel's launches equal the single solve's
+             formula, the product collectives (an all_reduce over a row
+             or a column, or one all_gather of a strip) one per product,
+             each sending the payload printed, and the rest of the
+             collectives `expected_collectives`; every rank returns the
+             same bits.
              entry.dryrun_multichip(1) runs on the card beside the 2x2
              group (one NCCL rank; four would need four cards).  The 2x2
              group and the dry run start when `refine` does and run
              beside phases 14-16, which time nothing and choose no layout
-             by timing, and the CLI runs of 13 and 19 follow the group
-             there, one at a time; this phase waits for all of them, then
-             runs the NCCL rank alone.
+             by timing, and the CLI runs of 12, 13 and 19 run there
+             beside the group, one at a time; this phase waits for all of
+             them, then runs the NCCL rank alone.
 18. fleet  — tpdlp_torch.solve_batch at its users' sizes, bench/fleet.py's
              settings (tol 1e-4, fp32, Ruiz + adaptive + PWU,
              restart_sync="global"): afiro-class x 10,000 over one shared
@@ -348,6 +358,10 @@ SHARED_MS_B = 8
 #: NCCL.
 SHARD_BAND_KKT = 2_000
 SHARD_RANKS = 4
+#: Per-rank peak device memory of the shard phase's cases when every rank
+#: held every vector whole, on an H100 80GB HBM3 at 700 W (PERF.md; only
+#: banded 100k's was kept).
+REPLICATED_PEAK_GB = {"banded-100k": 0.194}
 #: Timed all_reduces of the transport probe, on the host and on the card.
 ALL_REDUCE_PROBES = 100
 #: The harness phase: runner seeds (bench.py's 3), roofline's iterations
@@ -2485,6 +2499,7 @@ def _shard_rank(mesh, dev, cases):
     entered = time.time()
     from tpdlp_torch import SolverConfig, generate_banded_lp, solve
     from tpdlp_torch.ops import _kernels as K
+    from tpdlp_torch.shard import mesh as M
     from tpdlp_torch.solver import loop as L
 
     import torch.distributed as dist
@@ -2516,7 +2531,11 @@ def _shard_rank(mesh, dev, cases):
         t0 = time.perf_counter()
         r = solve(p, cfg, dtype=torch.float32, device=dev, seed=0,
                   mesh=mesh, matrix_format=case["format"])
+        sizes = {"dense": M.padded_sizes, "band": M.padded_sizes_band,
+                 "sparse": M.padded_sizes_sparse}[case["format"]]
+        pl = M.placement(mesh, case["format"], *sizes(p.m, p.n, mesh))
         out.append({
+            "held": dict(mesh.held), "payload": pl.payload,
             "wall_s": time.perf_counter() - t0, "status": int(r.status),
             "status_string": r.status_string, "k": r.iterations,
             "n": r.restarts, "j": r.kkt_passes, "objective": r.objective,
@@ -2529,11 +2548,34 @@ def _shard_rank(mesh, dev, cases):
             "all_reduce_ms": {k: v * 1e3 for k, v in probe.items()}}
 
 
+def expected_collectives(cfg, r, products, ranks) -> dict:
+    """The collectives a sharded solve of the blocked main path (fresh, no
+    timeout) issues on each rank, by purpose: one per product; "reduce":
+    2 per issued restart check (the candidates' residuals, then the new
+    weight with the termination test), power_iters + 1 for the power
+    iteration, 1 each for ||c|| with ||q||, the termination norms and the
+    objective, 1 for final_eval where the budget ran out (none on one
+    rank, whose slices are the whole vectors); "gather": 1 (the result);
+    "broadcast": 0.  "norm" is 3 a Ruiz pass (2 on one rank) and "check"
+    one a chunk, with one "clock" agreement before each chunk but the
+    first plus the resume's and the first budget check's."""
+    from tpdlp_torch import Status
+
+    reduce = (2 * r["issued"]["restart_checks"] + cfg.power_iters + 4
+              + (r["status"] == int(Status.KKT_LIMIT)))
+    return {"product": products, "reduce": reduce if ranks > 1 else 0,
+            "gather": 1, "broadcast": 0}
+
+
 def _shard_rows(tag, cases, per_rank, kernel, expect_fn):
     """Check one group's runs: every rank the same result bits; the path's
     kernel launched as the single solve's formula says (none for
-    block-ELL), and one product all_reduce for each product; no other
-    kernel.  Returns (row, rank 0's result) pairs."""
+    block-ELL), one product collective for each product and the other
+    collectives by `expected_collectives`; no other kernel; each rank
+    holding its slices of the vectors, x/C + y/R bytes in 2D and the
+    whole / N in flat.  Returns (row, rank 0's result) pairs."""
+    from tpdlp_torch import SolverConfig
+
     rows = []
     for i, case in enumerate(cases):
         runs = [rank["cases"][i] for rank in per_rank]
@@ -2545,6 +2587,7 @@ def _shard_rows(tag, cases, per_rank, kernel, expect_fn):
                     and np.array_equal(r["y"], r0["y"])):
                 raise AssertionError(f"{tag} {case['name']}: ranks differ")
         products = expect_fn(case, r0)
+        cfg = SolverConfig(**case["cfg"])
         kern = kernel[i]
         for rank, r in enumerate(runs):
             got = r["launches"][kern] if kern else products
@@ -2554,22 +2597,46 @@ def _shard_rows(tag, cases, per_rank, kernel, expect_fn):
                 raise AssertionError(
                     f"{tag} {case['name']} rank {rank}: launches "
                     f"{r['launches']}, expected {products} of {kern}")
-            if r["collectives"]["product"] != products:
+            want = expected_collectives(cfg, r, products, len(runs))
+            c = r["collectives"]
+            norm_per_pass = 3 if len(runs) > 1 else 2
+            clock_ok = (c["clock"] == c["check"] + 1 >= 2 if len(runs) > 1
+                        else c["check"] == 0 and c["clock"] >= 2)
+            if ({k: c[k] for k in want} != want or not clock_ok
+                    or c["norm"] % norm_per_pass
+                    or not 0 < c["norm"] <= norm_per_pass * cfg.ruiz_iters):
                 raise AssertionError(
-                    f"{tag} {case['name']} rank {rank}: "
-                    f"{r['collectives']['product']} product all_reduces "
-                    f"for {products} products")
+                    f"{tag} {case['name']} rank {rank}: collectives {c}, "
+                    f"expected {want}")
+            h = r["held"]
+            if (h["x"] * h["x_parts"] != h["x_whole"]
+                    or h["y"] * h["y_parts"] != h["y_whole"]):
+                raise AssertionError(f"{tag} {case['name']} rank {rank}: "
+                                     f"vector bytes {h}")
+        item = 4  # fp32
         row = {"mesh": tag, "instance": case["name"],
                "format": case["format"], "status": r0["status_string"],
                "k": r0["k"], "n": r0["n"], "j": r0["j"],
                "objective": r0["objective"], "wall_s": r0["wall_s"],
                "kernel": kern, "launches_per_rank": products,
-               "all_reduces_per_product":
+               "collectives_per_product":
                    r0["collectives"]["product"] / products,
                "collectives_per_rank": r0["collectives"],
+               "payload_entries_per_product": r0["payload"],
+               "payload_bytes_per_product": {
+                   k: v * item for k, v in r0["payload"].items()},
+               "vector_bytes_per_rank": [r["held"]["x"] + r["held"]["y"]
+                                         for r in runs],
+               "vector_bytes_formula": (
+                   r0["held"]["x_whole"] / r0["held"]["x_parts"]
+                   + r0["held"]["y_whole"] / r0["held"]["y_parts"]),
+               "vector_bytes_whole": (r0["held"]["x_whole"]
+                                      + r0["held"]["y_whole"]),
                "iterations_issued": r0["issued"]["iterations"],
                "restart_checks_issued": r0["issued"]["restart_checks"],
-               "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in runs]}
+               "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in runs],
+               "replicated_peak_mem_gb_per_rank": REPLICATED_PEAK_GB.get(
+                   case["name"]) if tag == "2x2 gloo" else None}
         rows.append((row, r0))
     return rows
 
@@ -2594,53 +2661,59 @@ def _timed(fn, *a, **kw):
     return fn(*a, **kw), time.perf_counter() - t
 
 
-def meanwhile_start(dev, p_s, p_b8, oracle, dense_rows):
+def meanwhile_start(dev, p_s, p_b8):
     """Start, in background threads, the work that waits on other
-    processes: shard_phase's 2x2 gloo group, then presolve_cli and
-    fishnet_cli (CLI subprocesses, one at a time); and beside them
-    entry.dryrun_multichip(1) (the entry point on the card: one NCCL rank,
-    spawned).  They run beside the phases that time nothing and choose no
-    layout by timing; each all_reduce of the group waits on the host's
-    loopback, which leaves the card mostly idle.  Returns (when they were
-    spawned, the future of the gloo group's result, the dry run's)."""
+    processes: shard_phase's 2x2 gloo group; cli_phase, then presolve_cli
+    and fishnet_cli (CLI subprocesses, one at a time, the last two on the
+    first's linprog verdicts); and entry.dryrun_multichip(1) (the entry
+    point on the card: one NCCL rank, spawned).  They run beside the
+    phases that time nothing and choose no layout by timing; each
+    collective of the group waits on the host's loopback, which leaves the
+    card mostly idle.  Returns (when they were spawned, the future of the
+    gloo group's result, the dry run's, the CLI runs')."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tpdlp_torch.entry import dryrun_multichip
     from tpdlp_torch.shard import run_ranks
 
-    def chain():
-        gloo = _timed(run_ranks, _shard_rank, SHARD_RANKS, backend="gloo",
-                      device=str(dev), shape=(2, 2),
-                      args=(_shard_cases(p_s, p_b8),), timeout=900)
+    def cli_runs():
+        (oracle, dense_rows), seconds = _timed(cli_phase)
+        emit("phase_seconds", name="cli", seconds=seconds,
+             beside="refine, refine_band, fp64_tail")
         for name, fn, *a in (("presolve_cli", presolve_cli, oracle,
                               dense_rows),
                              ("fishnet_cli", fishnet_cli, oracle)):
             _, seconds = _timed(fn, *a)
             emit("phase_seconds", name=name, seconds=seconds,
                  beside="refine, refine_band, fp64_tail")
-        return gloo
 
-    pool = ThreadPoolExecutor(2)
+    pool = ThreadPoolExecutor(3)
     spawned = time.time()
-    gloo_f = pool.submit(chain)
+    gloo_f = pool.submit(_timed, run_ranks, _shard_rank, SHARD_RANKS,
+                         backend="gloo", device=str(dev), shape=(2, 2),
+                         args=(_shard_cases(p_s, p_b8),), timeout=900)
+    cli_f = pool.submit(cli_runs)
     dry_f = pool.submit(_timed, dryrun_multichip, 1, device=dev)
     pool.shutdown(wait=False)
-    return spawned, gloo_f, dry_f
+    return spawned, gloo_f, dry_f, cli_f
 
 
 def shard_phase(dev, p_s, p_b8, cold_s, band_row, started):
     """Sharded solves over torch.distributed on the one card, at full
     width: one NCCL rank (a 1x1 mesh, in this process) and four gloo ranks
     sharing the card (2x2 mesh), the latter with entry.dryrun_multichip(1)
-    beside them, both started by meanwhile_start (`started`; the gloo
-    group's result waits for the CLI runs queued behind it).  mittelmann-s
+    beside them, both started by meanwhile_start (`started`, beside the
+    CLI runs, which this phase waits for too).  mittelmann-s
     through dense 2D blocks (Solved, held on the host at 10 * tol, within
     5 * tol of the unsharded objective), banded 8192 through band strips,
     mittelmann-s through block-ELL strips ("sparse"), and banded 100k
     through band strips for SHARD_BAND_KKT passes, whose per-rank peak
-    memory must stay below the unsharded band solve's.  Each rank's kernel
-    launches equal the single solve's formula, and its product all_reduces
-    one per product."""
+    memory must stay below the unsharded band solve's (the design's with
+    every vector replicated beside it).  Each rank's kernel launches equal the
+    single solve's formula, its product collectives one per product and
+    the rest `expected_collectives`; each rank holds only its slices of
+    the vectors (x/C + y/R bytes in 2D, the whole / N in flat), and sends
+    `Placement.payload` entries a product."""
     cases = _shard_cases(p_s, p_b8)
     kernels = ["dense_matvec", "band_matvec", None, "band_matvec"]
 
@@ -2650,13 +2723,16 @@ def shard_phase(dev, p_s, p_b8, cold_s, band_row, started):
         return expected_launches(SolverConfig(**case["cfg"]), _as_result(r),
                                  r["issued"])
 
-    spawned, gloo_f, dry_f = started
+    spawned, gloo_f, dry_f, cli_f = started
     gloo, gloo_s = gloo_f.result()
     dry, dry_s = dry_f.result()
+    cli_f.result()
     # Then the NCCL rank, alone.
     nccl, nccl_s = _timed(_nccl_in_process, dev, cases[:1])
     emit("dryrun_multichip", ranks=1, backend="nccl", seconds=dry_s,
-         **{k: {"k": v[0], "objective": v[1]} for k, v in dry.items()})
+         **{k: {"k": v[0], "objective": v[1],
+                "collectives_per_product": v[2], "payload_entries": v[3]}
+            for k, v in dry.items()})
     rows = (_shard_rows("2x2 gloo", cases, gloo, kernels, products)
             + _shard_rows("1x1 nccl", cases[:1], nccl, kernels, products))
     problems = {p_s.name: p_s, p_b8.name: p_b8}
@@ -2870,12 +2946,11 @@ def _run_phases(dev, rates, smi, name, t_start, p_s, p_b8, highs):
                               dev, p_band, band_run)
     del band_run
     phase("checkpoint", checkpoint_phase, dev)
-    oracle, dense_cli = phase("cli", cli_phase)
     phase("presolve", presolve_phase)
-    # The sharded 2x2 group, the presolve and fishnet CLI runs and the dry
-    # run, meanwhile: refine, refine_band and fp64_tail time nothing and
-    # choose no layout by timing.
-    started = meanwhile_start(dev, p_s, p_b8, oracle, dense_cli)
+    # The sharded 2x2 group, the CLI sweeps and the dry run, meanwhile:
+    # refine, refine_band and fp64_tail time nothing and choose no layout
+    # by timing.
+    started = meanwhile_start(dev, p_s, p_b8)
     out["refine_row"] = phase("refine", refine_phase, dev, "refine", p_s,
                               oracles["refine"], "dense_matvec", REFINE_KKT,
                               "coarse")

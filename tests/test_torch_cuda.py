@@ -972,16 +972,23 @@ def test_element_fleet_on_card_matches_single_solves(card):
 
 
 def _rank_partials(op_of, x, y, shape):
-    """Each rank's placed partial K x and K'y of a (R, C) mesh whose ranks
-    share this process (no process group: the all_reduce is the
-    identity), and the kernel launches of each."""
+    """Each rank's products of a (R, C) mesh whose ranks share this
+    process (no process group: a collective is the identity), on its
+    slices of the whole x and y (each its own tensor, as in a solve): a 2D
+    block's partial K x_c and K'y_r, a flat strip's kernels on the whole
+    vectors; with the placement and the kernel launches of each."""
     from tpdlp_torch.shard.mesh import Mesh
 
     out = []
     for rank in range(shape[0] * shape[1]):
         op = op_of(Mesh(shape, rank))
         before = dict(_kernels.launches)
-        out.append((op.mv(x), op.rmv(y),
+        if op.pl.flat:
+            kx, kty = op.fwd.matvec(x), op.bwd.matvec(y)
+        else:
+            kx = op.mv(op.pl.cut_x(x).clone())
+            kty = op.rmv(op.pl.cut_y(y).clone())
+        out.append((op.pl, kx, kty,
                     {k: v - before[k] for k, v in _kernels.launches.items()
                      if v != before[k]}))
     return out
@@ -990,10 +997,11 @@ def _rank_partials(op_of, x, y, shape):
 @pytest.mark.parametrize("fmt", ["dense", "band"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_sharded_operators_on_card_sum_to_the_products(card, fmt, dtype):
-    """The sharded layouts' kernels on the card: each rank's partial K x
-    and K'y (K1 on a 2D block whose slices of x and y start off 16-byte
-    alignment; K2 on a range of groups) sum to the whole operator's
-    products, one launch of the layout's kernel per product and rank."""
+    """The sharded layouts' kernels on the card: each 2D block's partial
+    K x_c (K'y_r), summed over its row's (column's) ranks, is the whole
+    operator's product at the rank's y (x) slice (K1 on each block); each
+    flat strip's K2 on the whole vector is the product at its strip; one
+    launch of the layout's kernel per product and rank."""
     import scipy.sparse as sp
 
     from tpdlp_torch.shard import mesh as TM
@@ -1018,21 +1026,28 @@ def test_sharded_operators_on_card_sum_to_the_products(card, fmt, dtype):
     parts = _rank_partials(lambda mesh: build(K, mesh, dtype, card),
                            x.to(dtype=dtype, device=card),
                            y.to(dtype=dtype, device=card), shape)
-    kx = sum(px.cpu().double() for px, _, _ in parts)
-    kty = sum(py.cpu().double() for _, py, _ in parts)
+    kx = torch.zeros(m_pad, dtype=torch.float64)
+    kty = torch.zeros(n_pad, dtype=torch.float64)
+    for pl, px, py, _ in parts:
+        (x0, x1), (y0, y1) = pl.x_span, pl.y_span
+        # Flat: each strip once; 2D: each row's C partials of K x, each
+        # column's R partials of K'y.
+        kx[y0:y1] += px.cpu().double()
+        kty[x0:x1] += py.cpu().double()
     Kd = torch.as_tensor(K.toarray())
     for got, want in ((kx, Kd @ x), (kty, Kd.T @ y)):
         rel = float(((got - want).abs() / (1 + want.abs())).max())
         assert rel < _tol(max(m_pad, n_pad), dtype), rel
-    assert all(launched == {kernel: 2} for _, _, launched in parts)
+    assert all(launched == {kernel: 2} for _, _, _, launched in parts)
 
 
 def test_sharded_solves_on_card_over_gloo_and_nccl(card):
-    """Two gloo ranks sharing the card (a 1x2 mesh; NCCL refuses two ranks
-    on one card) and one NCCL rank: dense and band solves in fp32 reach
-    the unsharded card solve's status, the objective within 5 * tol, and
-    every rank launches its layout's kernel once per product all_reduce
-    (tests/torch_shard_ranks.py is each rank's side)."""
+    """Two gloo ranks sharing the card as a 1x2 and as a 2x1 mesh (NCCL
+    refuses two ranks on one card) and one NCCL rank: dense and band
+    solves in fp32 on partitioned vectors reach the unsharded card solve's
+    status, the objective within 5 * tol; every rank launches its layout's
+    kernel once per product collective and holds only its slices of the
+    vectors (tests/torch_shard_ranks.py is each rank's side)."""
     from torch_shard_ranks import run_cases
     from tpdlp_torch.shard import run_ranks
 
@@ -1048,26 +1063,35 @@ def test_sharded_solves_on_card_over_gloo_and_nccl(card):
                                                seed=9),
     }
     kernel = {"dense": "dense_matvec", "band": "band_matvec"}
-    cases = [{"kind": "solve", "shape": (1, 2), "problem": p, "cfg": cfg,
-              "solve": {"matrix_format": fmt, "dtype": torch.float32}}
-             for fmt, p in problems.items()]
+
+    def cases(shape):
+        return [{"kind": "solve", "shape": shape, "problem": p, "cfg": cfg,
+                 "solve": {"matrix_format": fmt, "dtype": torch.float32}}
+                for fmt, p in problems.items()]
+
     runs = {
-        "gloo": run_ranks(run_cases, 2, backend="gloo", device=str(card),
-                          shape=(1, 2), args=(cases,), timeout=600),
-        "nccl": run_ranks(run_cases, 1, backend="nccl", device=[str(card)],
-                          shape=(1, 1),
-                          args=([dict(c, shape=(1, 1)) for c in cases],),
-                          timeout=600),
+        "gloo 1x2": run_ranks(run_cases, 2, backend="gloo",
+                              device=str(card), shape=(1, 2),
+                              args=(cases((1, 2)),), timeout=600),
+        "gloo 2x1": run_ranks(run_cases, 2, backend="gloo",
+                              device=str(card), shape=(2, 1),
+                              args=(cases((2, 1)),), timeout=600),
+        "nccl 1x1": run_ranks(run_cases, 1, backend="nccl",
+                              device=[str(card)], shape=(1, 1),
+                              args=(cases((1, 1)),), timeout=600),
     }
     for i, (fmt, p) in enumerate(problems.items()):
         single = tpdlp_torch.solve(p, tpdlp_torch.SolverConfig(**cfg),
                                    dtype=torch.float32, device=card,
                                    matrix_format=fmt)
         assert single.status == tpdlp_torch.Status.SOLVED
-        for backend, per_rank in runs.items():
+        for mesh, per_rank in runs.items():
             for r in (rank[i] for rank in per_rank):
-                assert r["status"] == int(single.status), (backend, fmt)
+                assert r["status"] == int(single.status), (mesh, fmt)
                 assert abs(r["objective"] - single.objective) <= 5 * tol * (
-                    1 + abs(single.objective)), (backend, fmt)
+                    1 + abs(single.objective)), (mesh, fmt)
                 assert r["launches"][kernel[fmt]] == r["counts"]["product"]
                 assert r["counts"]["product"] > 2 * r["k"]
+                held = r["held"]
+                assert held["x"] * held["x_parts"] == held["x_whole"]
+                assert held["y"] * held["y_parts"] == held["y_whole"]

@@ -13,6 +13,14 @@ here, on `make_solver_mesh(jax.devices()[:4], shape)`.
   (`addressable_shards`), array for array, for the dense 2D blocks, the
   band slabs and the block-ELL tiles.  `padded_sizes*`
   and `pad_vectors` equal JAX's on a grid of sizes and meshes.
+- Vectors: after `prepare`, each rank's slice of every state field and
+  problem vector equals the JAX `shard_state` / `shard_device_problem`
+  shard on the matching device, and after a chunk of fixed steps the JAX
+  state's values at the rank's span; every scalar holds the same bits on
+  every rank, in 2D the x slice on a column's ranks and the y slice on a
+  row's; each rank holds x/C + y/R bytes of vectors (2D) or the whole / N
+  (flat); the collectives by purpose follow the formula of
+  `_expected_counts`.
 - fp64, fixed steps: the JAX sharded solve's status and k, n, j exactly,
   x and y to 1e-9; the port's unsharded solve to the same; every rank the
   same bits; one all_reduce per product.  Both start from the JAX
@@ -25,6 +33,7 @@ here, on `make_solver_mesh(jax.devices()[:4], shape)`.
 """
 
 import fcntl
+import importlib
 import pickle
 
 import jax
@@ -38,13 +47,20 @@ import tpdlp
 import tpdlp.shard.mesh as JM
 from tpdlp.ops.band import BandOp as JBandOp
 from tpdlp.ops.blocked import BlockEllOp as JBlockEllOp
+from tpdlp.ops.dense import DenseOp as JDenseOp
+from tpdlp.solver.loop import run_chunk as jax_run_chunk
 import tpdlp_torch
 import tpdlp_torch.solver.power_iteration as PI
+from tpdlp_torch.ops.exact_dense import ExactDenseOp
+from tpdlp_torch.scaling.ruiz import ruiz_equilibrate
 from tpdlp_torch.shard import mesh as TM
 from tpdlp_torch.shard import run_ranks
 from torch_shard_ranks import run_cases
 
 torch.set_num_threads(2)
+
+#: tpdlp.solver.solve, the module (the package exports the function).
+JS = importlib.import_module("tpdlp.solver.solve")
 
 SHAPES = [(2, 2), (1, 4), (4, 1)]
 FIXED = dict(scaling="ruiz", adaptive=False, primal_weight_update=True,
@@ -133,8 +149,37 @@ def _solve_cases(ckpt_dir):
     return out
 
 
+#: The placed cases: prepare, then a chunk of this many KKT passes (0:
+#: prepare alone) of fixed steps, on every layout and mesh.
+PLACED_BUDGETS = (0, 120)
+
+
+def _placed_id(fmt, shape, budget):
+    return f"placed-{fmt}-{shape[0]}x{shape[1]}-{budget}"
+
+
+def _placed_case(fmt):
+    return "banded" if fmt == "band" else "feasible"
+
+
+def _placed_cases():
+    problems = _problems(tpdlp_torch)
+    out = {}
+    for shape in SHAPES:
+        for fmt in ("dense", "band", "sparse"):
+            p = problems[_placed_case(fmt)]
+            _, n_pad = PAD[fmt](p.m, p.n, TM.Mesh(shape))
+            for budget in PLACED_BUDGETS:
+                out[_placed_id(fmt, shape, budget)] = {
+                    "kind": "placed", "shape": shape, "problem": p,
+                    "format": fmt, "cfg": dict(tol=TOL, **FIXED),
+                    "budget": budget, "b0": _b0(n_pad)}
+    return out
+
+
 def _run_ranks(ckpt_dir):
-    cases = {**_layout_cases(), **_solve_cases(ckpt_dir)}
+    cases = {**_layout_cases(), **_placed_cases(),
+             **_solve_cases(ckpt_dir)}
     per_rank = run_ranks(run_cases, 4, backend="gloo", device="cpu",
                          shape=(2, 2), args=(list(cases.values()),),
                          timeout=900)
@@ -267,6 +312,174 @@ def test_rank_devices_follow_the_backend_they_are_given(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# Vectors: the JAX placement on every rank
+# ---------------------------------------------------------------------------
+
+_PLACED = [(fmt, shape) for shape in SHAPES
+           for fmt in ("dense", "band", "sparse")]
+
+
+def _jax_placed(fmt, shape, budget):
+    """The JAX package's sharded (pb, state) of the placed case: its
+    solve's mesh branch (padding, the layout's sharded operator, the
+    vectors placed), `_prepare`, `shard_device_problem` and `shard_state`,
+    then `run_chunk` to `budget` KKT passes."""
+    p = _problems(tpdlp)[_placed_case(fmt)]
+    mesh = _jax_mesh(shape)
+    m_pad, n_pad = PAD[fmt](p.m, p.n, TM.Mesh(shape))
+    K = _padded_coo(p.K, m_pad, n_pad)
+    if fmt == "dense":
+        mat_s, yvec_s, xvec_s, _ = JM.problem_shardings(mesh)
+        op = JDenseOp(jax.device_put(K.toarray(), mat_s))
+    else:
+        _, yvec_s, _ = JM.flat_shardings(mesh)
+        xvec_s = yvec_s
+        op = (JM.shard_band(JBandOp.from_scipy(K, jnp.float64, host=True),
+                            mesh) if fmt == "band" else
+              JM.shard_block_ell(JBlockEllOp.from_scipy(K, jnp.float64,
+                                                        host=True), mesh))
+    c, q, l, u, mask = JM.pad_vectors(p.c, p.q, p.l, p.u,
+                                      np.arange(p.m) < p.m_ineq, m_pad,
+                                      n_pad)
+    put = jax.device_put
+    cfg = tpdlp.SolverConfig(tol=TOL, **FIXED)
+    pb, st = JS._prepare(op, put(c, xvec_s), put(q, yvec_s),
+                         put(l, xvec_s), put(u, xvec_s), jnp.asarray(mask),
+                         jax.random.PRNGKey(0), jnp.asarray(np.nan), cfg)
+    pb = JM.shard_device_problem(pb, mesh)
+    st = JM.shard_state(st, mesh, layout="2d" if fmt == "dense" else "flat")
+    if budget:
+        st = jax_run_chunk(st, pb, jnp.int32(budget), cfg, aligned=True)
+    arrays = {f"st.{k}": v for k, v in vars(st).items()}
+    arrays.update({f"pb.{k}": v for k, v in vars(pb).items() if k != "op"})
+    return mesh, arrays
+
+
+def _same(got, want, what, rel=1e-12):
+    if got.dtype.kind in "biu":
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        assert got.shape == want.shape, what
+        assert _rel(got, want) <= rel, (what, _rel(got, want))
+
+
+@pytest.mark.parametrize("fmt,shape", _PLACED)
+def test_prepared_slices_equal_jax_shards(port_runs, fmt, shape):
+    """After `prepare`, each rank's slice of every state field and problem
+    vector is the JAX shard on the matching device (fp64; floats to
+    1e-12, the power iteration's and ||c||/||q||'s sums differ in order
+    only)."""
+    mesh, want = _jax_placed(fmt, shape, 0)
+    runs = port_runs[_placed_id(fmt, shape, 0)]
+    for name, arr in want.items():
+        shards = _by_device(arr, mesh)
+        for rank, r in enumerate(runs):
+            _same(r["arrays"][name], shards[rank],
+                  f"{fmt} {shape} rank {rank} {name}")
+
+
+@pytest.mark.parametrize("fmt,shape", _PLACED)
+def test_slices_after_a_chunk_equal_jax(port_runs, fmt, shape):
+    """After a chunk of 120 KKT passes of fixed steps (three restart
+    checks), each rank's slices are the JAX sharded state's values at the
+    rank's spans: counters exactly, floats to 1e-9."""
+    budget = PLACED_BUDGETS[1]
+    _, want = _jax_placed(fmt, shape, budget)
+    for rank, r in enumerate(port_runs[_placed_id(fmt, shape, budget)]):
+        (x0, x1), (y0, y1) = r["spans"]
+        assert r["issued"]["restart_checks"] >= 3
+        for name, arr in want.items():
+            whole = np.asarray(arr)
+            if whole.ndim:
+                n_x = len(np.asarray(want["st.x"]))
+                whole = whole[x0:x1] if len(whole) == n_x else whole[y0:y1]
+            _same(r["arrays"][name], whole,
+                  f"{fmt} {shape} rank {rank} {name}", rel=1e-9)
+
+
+@pytest.mark.parametrize("fmt,shape", _PLACED)
+@pytest.mark.parametrize("budget", PLACED_BUDGETS)
+def test_replicas_hold_the_same_bits(port_runs, fmt, shape, budget):
+    """Every scalar of the state holds the same bits on every rank; in 2D
+    the R ranks of a column hold the same x slice bits and the C ranks of
+    a row the same y slice bits."""
+    runs = port_runs[_placed_id(fmt, shape, budget)]
+    R, C = shape
+    for name, v in runs[0]["arrays"].items():
+        if v.ndim == 0:
+            for r in runs[1:]:
+                assert r["arrays"][name].tobytes() == v.tobytes(), name
+    if fmt != "dense":
+        return
+    for rank, r in enumerate(runs):
+        same_col = runs[rank % C]  # row 0 of this rank's column
+        same_row = runs[(rank // C) * C]  # column 0 of this rank's row
+        for name, v in r["arrays"].items():
+            if v.ndim == 0:
+                continue
+            twin = same_col if len(v) == len(r["arrays"]["st.x"]) else (
+                same_row)
+            assert v.tobytes() == twin["arrays"][name].tobytes(), (rank,
+                                                                 name)
+
+
+@pytest.mark.parametrize("fmt,shape", _PLACED)
+@pytest.mark.parametrize("budget", PLACED_BUDGETS)
+def test_each_rank_holds_its_share_of_the_vectors(port_runs, fmt, shape,
+                                                  budget):
+    """Vector bytes on a rank (each tensor once, however many fields hold
+    it): x/C + y/R in 2D, the whole / N in flat, where x and y are the
+    bytes the same vectors take whole."""
+    R, C = shape
+    parts = (C, R) if fmt == "dense" else (R * C, R * C)
+    for r in port_runs[_placed_id(fmt, shape, budget)]:
+        b = r["bytes"]
+        assert (b["x_parts"], b["y_parts"]) == parts
+        assert b["x"] * parts[0] == b["x_whole"] > 0
+        assert b["y"] * parts[1] == b["y_whole"] > 0
+
+
+@pytest.mark.parametrize("fmt,shape", _PLACED)
+def test_collectives_follow_the_formula(port_runs, monkeypatch, fmt, shape):
+    """Prepare and a chunk: the collectives by purpose on every rank are
+    `_expected_counts`'s."""
+    budget = PLACED_BUDGETS[1]
+    passes = _ruiz_passes(_placed_case(fmt), fmt, shape, monkeypatch)
+    for r in port_runs[_placed_id(fmt, shape, budget)]:
+        want = _expected_counts(r, FIXED, passes, extract=False)
+        assert {k: r["counts"][k] for k in want} == want
+
+
+@pytest.mark.parametrize("cid", [c for c in SOLVES
+                                 if not c.startswith("resumed")])
+def test_solve_collectives_follow_the_formula(port_runs, monkeypatch, cid):
+    """Whole solves, blocked and per-iteration with certificates: the
+    collectives by purpose are `_expected_counts`'s on every rank, with
+    one scalar check a chunk and one agreement before each chunk but the
+    first, plus the resume's and the first budget check's."""
+    pname, fmt, shape, settings = SOLVES[cid]
+    layout = "dense" if fmt == "auto" else fmt
+    passes = _ruiz_passes(pname, layout, shape, monkeypatch)
+    for r in port_runs[cid]:
+        solved_at_check = r["status"] != int(tpdlp.Status.KKT_LIMIT)
+        want = _expected_counts(r, settings, passes, solved_at_check)
+        assert {k: r["counts"][k] for k in want} == want
+        assert r["counts"]["clock"] == r["counts"]["check"] + 1 >= 2
+
+
+@pytest.mark.parametrize("cid", list(SOLVES) + ["resumed-dense-2x2"])
+def test_solves_hold_their_share_of_the_vectors(port_runs, cid):
+    """At the end of every sharded solve (resumed, certified and infeasible
+    ones included) each rank holds its slices only: x/C + y/R bytes of
+    vectors in 2D, the whole / N in flat."""
+    for r in port_runs[cid]:
+        held = r["held"]
+        assert held["x_parts"] * held["y_parts"] > 1
+        assert held["x"] * held["x_parts"] == held["x_whole"] > 0
+        assert held["y"] * held["y_parts"] == held["y_whole"] > 0
+
+
+# ---------------------------------------------------------------------------
 # Solves
 # ---------------------------------------------------------------------------
 
@@ -294,10 +507,58 @@ def _same_on_every_rank(runs):
     return r0
 
 
-def _one_all_reduce_per_product(r):
-    # Two products per iteration and restart check, the power
-    # iteration's 2 * 100 + 1 and init_state's 2: every one reduced once.
-    assert r["counts"]["product"] > 2 * r["k"]
+def _ruiz_passes(pname, fmt, shape, monkeypatch):
+    """The Ruiz passes of the problem's padded K: the unsharded pass count
+    (inf-norms and diagonal products are exact, so every layout and mesh
+    stops at the same pass)."""
+    p = _problems(tpdlp_torch)[pname]
+    m_pad, n_pad = PAD[fmt](p.m, p.n, TM.Mesh(shape))
+    calls = []
+    real = ExactDenseOp.row_abs_norms
+    monkeypatch.setattr(ExactDenseOp, "row_abs_norms",
+                        lambda self, ord: calls.append(ord) or real(self,
+                                                                    ord))
+    op = ExactDenseOp.build(torch.as_tensor(
+        _padded_coo(p.K, m_pad, n_pad).toarray()))
+    ruiz_equilibrate(op, 20, 1e-6)
+    monkeypatch.undo()
+    return len(calls)
+
+
+def _expected_counts(r, cfg, passes, solved_at_check=True, extract=True):
+    """The collectives a rank issues, by purpose, for a fresh solve or a
+    prepare-and-chunk (`extract` False) that neither times out, warm
+    starts nor resumes:
+    - product: one per product, 2 per issued iteration and restart check
+      plus the power iteration's 2 * power_iters + 1 and init_state's 2;
+    - norm: 3 per Ruiz pass (2D: the row and column norms over the
+      subgroups and the stop test; flat: two gathers of the factors and
+      the stop test);
+    - reduce: 2 per restart check (the candidates' residuals, then the new
+      weight with the termination test), 2 per issued iteration with
+      certificates (the rays' norms, then their tests), power_iters + 1
+      for the power iteration, 1 for ||c||, ||q||, 1 for the termination
+      norms, 1 for the objective, 1 for `final_eval` when the budget ran
+      out;
+    - gather: 1, the result; broadcast: 0."""
+    it, checks = r["issued"]["iterations"], r["issued"]["restart_checks"]
+    certify = cfg.get("infeasibility_detect") or cfg.get(
+        "normalized_certificates")
+    reduce = (2 * checks + 100 + 1 + 2 + (2 * it if certify else 0)
+              + (1 if extract else 0) + (0 if solved_at_check else 1))
+    return {"product": 2 * (it + checks) + 2 * 100 + 3, "norm": 3 * passes,
+            "reduce": reduce, "gather": 1 if extract else 0,
+            "broadcast": 0}
+
+
+def _one_collective_per_product(r):
+    # Two products per issued iteration and restart check, the power
+    # iteration's 2 * 100 + 1 and init_state's 2: every one reduced or
+    # gathered once, and each a kernel launch where the layout has one.
+    products = 2 * (r["issued"]["iterations"]
+                    + r["issued"]["restart_checks"]) + 203
+    assert r["counts"]["product"] == products
+    assert set(v for k, v in r["launches"].items() if v) <= {products}
     assert r["counts"]["norm"] > 0 and r["counts"]["broadcast"] == 0
 
 
@@ -312,7 +573,7 @@ def test_fixed_steps_match_jax_and_unsharded(port_runs, monkeypatch, cid):
     assert rt["x"].shape == (rj.x.shape[0],) and len(rt["y"]) == len(rj.y)
     assert _rel(rt["x"], rj.x) <= 1e-9 and _rel(rt["y"], rj.y) <= 1e-9
     assert _rel(rt["objective"], rj.objective) <= 1e-9
-    _one_all_reduce_per_product(rt)
+    _one_collective_per_product(rt)
 
     pname, fmt, shape, settings = SOLVES[cid]
     p = _problems(tpdlp_torch)[pname]

@@ -5,10 +5,13 @@ Each row times a chunk of `--iters` KKT passes from the same warm state
 (Ruiz, adaptive steps, tol 0 so nothing terminates) and checks the
 communication structure: where the JAX harness reads the all-reduces from
 the compiled HLO, this one counts the all_reduces each rank issued over
-the chunk (`Mesh.counts`), which must be one per operator product.  Under
-the port's design every vector is replicated, so a product reduces a
-full-length vector: m_pad + n_pad elements per iteration, whatever the
-mesh.  The trajectory must match the single-rank run (padding is exact).
+the chunk (`Mesh.counts`), which must be one per operator product.  The
+vectors are placed as the JAX package places them (x on "col", y on
+"row"), so K x all_reduces rank (r, c)'s m_pad/R partial entries over its
+row's C ranks and K'y its n_pad/C over its column's R ranks, each with the
+step's two or one dot partials riding along: the payload a rank sends per
+product, in elements and bytes, is in each row.  The trajectory must
+match the single-rank run (padding is exact).
 
 The backend is the caller's: gloo runs the ranks on the CPU or shares the
 cards among them (staging CUDA tensors through the host), NCCL gives each
@@ -33,6 +36,7 @@ def _timed_chunk(mesh, dev, problem, cfg, iters, dtype_name):
     import torch
 
     from tpdlp_torch.solver import loop as L
+    from tpdlp_torch.solver.reduce import reduce
     from tpdlp_torch.solver.solve import prepare
 
     dtype = getattr(torch, dtype_name)
@@ -53,7 +57,7 @@ def _timed_chunk(mesh, dev, problem, cfg, iters, dtype_name):
                          + L.launched["restart_checks"]),
         "all_reduces": 0 if mesh is None else mesh.counts["product"],
         "shape": list(pb.op.shape), "itemsize": pb.c.element_size(),
-        "objective": float(torch.dot(pb.c, st.x)),
+        "objective": float(reduce(pb.red, ("dot", "x", pb.c, st.x))[0]),
     }
 
 
@@ -82,7 +86,11 @@ def run_scaling(m, n, iters, *, backend, ranks=(1, 2, 4),
                 raise AssertionError(f"ranks disagree: {out}")
         R, C = default_shape(world)
         m_pad, n_pad = res["shape"]
-        elems = 0 if world == 1 else m_pad + n_pad
+        # A rank's payload: its block's partial K x (m_pad/R) with dx'dx,
+        # and K'y (n_pad/C) with dy'dy and dy'K dx.
+        per_product = ({} if world == 1 else
+                       {"K x": m_pad // R + 1, "K'y": n_pad // C + 2})
+        elems = sum(per_product.values())
         rows.append({
             "devices": world,
             "mesh": {"row": R, "col": C},
@@ -92,6 +100,9 @@ def run_scaling(m, n, iters, *, backend, ranks=(1, 2, 4),
             "all_reduces_per_kkt_pass": res["all_reduces"]
             / res["kkt_passes"],
             "all_reduces_per_product": res["all_reduces"] / res["products"],
+            "comm_elems_per_product": per_product,
+            "comm_bytes_per_product": {k: v * res["itemsize"]
+                                       for k, v in per_product.items()},
             "comm_elems_per_iteration": elems,
             "comm_bytes_per_iteration": elems * res["itemsize"],
             "scaled_objective_after_chunks": res["objective"],

@@ -58,7 +58,9 @@ def entry(device=None, dtype=None):
 
 
 def _dryrun_rank(mesh, dev):
-    """One rank of dryrun_multichip: the three sharded solves."""
+    """One rank of dryrun_multichip: the three sharded solves, each with
+    its (k, objective, collectives a product, entries a rank sends a
+    product)."""
     from tpdlp_torch import (
         SolverConfig,
         Status,
@@ -66,6 +68,8 @@ def _dryrun_rank(mesh, dev):
         generate_feasible_lp,
         solve,
     )
+    from tpdlp_torch.solver import loop
+    from tpdlp_torch.solver.solve import _padded_problem
 
     problem = generate_feasible_lp(n=45, m_ineq=26, m_eq=9, seed=0)
     cfg = SolverConfig(tol=1e-5, max_kkt=40_000, scaling="ruiz",
@@ -76,10 +80,20 @@ def _dryrun_rank(mesh, dev):
     for name, p, fmt in (("dense", problem, "dense"),
                          ("sparse", problem, "sparse"),
                          ("band", banded, "band")):
+        mesh.reset_counts()
+        loop.reset_launched()
         r = solve(p, cfg, device=dev, mesh=mesh, matrix_format=fmt)
         if r.status != Status.SOLVED or not np.isfinite(r.x).all():
             raise AssertionError(f"{name}: {r.status_string}")
-        out[name] = (r.iterations, r.objective)
+        products = 2 * (loop.launched["iterations"]
+                        + loop.launched["restart_checks"]) + 203
+        if mesh.counts["product"] != products:
+            raise AssertionError(f"{name}: {mesh.counts['product']} "
+                                 f"product collectives, {products} "
+                                 "products")
+        pl = _padded_problem(p, mesh, fmt)[2]
+        out[name] = (r.iterations, r.objective,
+                     mesh.counts["product"] / products, pl.payload)
     d, s = out["dense"][1], out["sparse"][1]
     if abs(d - s) > 1e-3 * (1 + abs(d)):
         raise AssertionError(f"dense {d} and sparse {s} objectives differ")
@@ -88,8 +102,9 @@ def _dryrun_rank(mesh, dev):
 
 def dryrun_multichip(n_devices: int, device=None) -> dict:
     """Spawn `n_devices` ranks and solve to Solved under the three sharded
-    layouts; returns rank 0's {layout: (k, objective)}, which every rank
-    must share.
+    layouts; returns rank 0's {layout: (k, objective, collectives a
+    product, {product: entries a rank sends})}, which every rank must
+    share.
 
     `device`: None means CUDA (raises without it), "cpu" runs the ranks on
     the CPU.  The backend follows from it: gloo on the CPU, NCCL on CUDA
@@ -108,7 +123,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     out = results[0]
     print(f"dryrun_multichip OK: mesh {default_shape(n_devices)} "
           f"({n_devices} ranks, {backend} on {dev.type}); "
-          + "; ".join(f"{k} solve k={v[0]} obj={v[1]:.6f}"
+          + "; ".join(f"{k} solve k={v[0]} obj={v[1]:.6f}, {v[2]:g} "
+                      f"collective a product, {v[3]} entries a rank"
                       for k, v in out.items()))
     return out
 

@@ -9,6 +9,11 @@ import torch
 class LinOp:
     """A (m, n) linear operator K with the product pair K x and K'y."""
 
+    #: The reducer of the solver's dots and norms over this operator's
+    #: vectors (solver/reduce.py): None for an operator on one device, a
+    #: shard.mesh.Placement for a sharded one.
+    red = None
+
     @property
     def shape(self) -> tuple[int, int]:
         raise NotImplementedError
@@ -28,6 +33,23 @@ class LinOp:
     def rmv(self, y):
         """K' @ y: (m,) -> (n,)."""
         raise NotImplementedError
+
+    @property
+    def slice_shape(self) -> tuple[int, int]:
+        """(len of the y slice, len of the x slice) that the products take
+        and give: the whole (m, n) except under a mesh."""
+        return self.shape
+
+    def mv_sums(self, x, parts=(), fast=False):
+        """(K x, the x-space scalar partials `parts` summed over the whole
+        space); `fast` takes mv_fast.  On one device the partials are
+        already the sums; a sharded operator sums them on its product's
+        collective."""
+        return (self.mv_fast(x) if fast else self.mv(x)), tuple(parts)
+
+    def rmv_sums(self, y, parts=(), fast=False):
+        """(K'y, the y-space partials `parts` summed), as mv_sums."""
+        return (self.rmv_fast(y) if fast else self.rmv(y)), tuple(parts)
 
     # Throughput variants for the PDHG step products (cfg.step_products).
     # The JAX package needs them for the TPU's rounding MXU dot; on the

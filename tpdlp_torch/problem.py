@@ -27,6 +27,7 @@ import torch
 
 from tpdlp_torch.device import resolve_device
 from tpdlp_torch.ops.exact_dense import ExactDenseOp
+from tpdlp_torch.solver.reduce import reduce
 
 
 @dataclasses.dataclass
@@ -143,6 +144,12 @@ class DeviceProblem:
     def m(self) -> int:
         return self.q.shape[-1]
 
+    @property
+    def red(self):
+        """The reducer of the solver's dots and norms (solver/reduce.py):
+        the operator's, None on one device."""
+        return self.op.red
+
 
 def device_problem(
     op,
@@ -165,8 +172,9 @@ def device_problem(
 
     When `d_row`/`d_col` are None the problem is unscaled and the original
     data coincides with the scaled data.  `ineq_mask` overrides the default
-    prefix mask."""
-    m, n = op.shape
+    prefix mask.  Under a mesh the vectors are this rank's slices and the
+    termination norms are reduced over their spaces (`op.red`)."""
+    m, n = q.shape[-1], c.shape[-1]
     dtype, dev = c.dtype, c.device
     if d_row is None:
         d_row = torch.ones((m,), dtype=dtype, device=dev)
@@ -188,12 +196,9 @@ def device_problem(
 
     # The reference takes the termination norms from the data handed to the
     # algorithm: the scaled data when preconditioned.
-    if compat_scaled_norms:
-        q_norm_term = torch.linalg.vector_norm(q)
-        c_norm_term = torch.linalg.vector_norm(c)
-    else:
-        q_norm_term = torch.linalg.vector_norm(q0)
-        c_norm_term = torch.linalg.vector_norm(c0)
+    q_t, c_t = (q, c) if compat_scaled_norms else (q0, c0)
+    q_norm_term, c_norm_term = reduce(op.red, ("norm", "y", q_t),
+                                      ("norm", "x", c_t))
 
     return DeviceProblem(
         op=op, c=c, q=q, l=l, u=u,

@@ -6,12 +6,17 @@ accumulating so that K_s = diag(d_row) K diag(d_col), and scales
 c_s = c * d_col, q_s = q * d_row, l_s = l / d_col, u_s = u / d_col.  Its
 stop test reads one flag from the device per iteration (preprocessing, not
 the iteration loop).  Operators are scaled through `LinOp.scale`; the
-dense operator scales only K there and builds K' once, afterwards.
+dense operator scales only K there and builds K' once, afterwards.  Under
+a mesh the diagonals are this rank's slices (`LinOp.slice_shape`), the
+norms come from the sharded operator, and the stop test's two maxima are
+one collective.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpdlp_torch.solver.reduce import reduce
 
 
 def _safe(v, eps):
@@ -29,7 +34,7 @@ def ruiz_equilibrate(op, max_iter: int = 20, eps: float = 1e-6):
     the JAX `while_loop` does under vmap: a converged element's factors
     become exactly 1, which leaves its matrix and diagonals as they are
     (and one operator's factors are its norms, bit for bit)."""
-    m, n = op.shape
+    m, n = op.slice_shape
     lead, dtype, dev = op.batch_shape, op.dtype, op.device
     d_row = torch.ones(lead + (m,), dtype=dtype, device=dev)
     d_col = torch.ones(lead + (n,), dtype=dtype, device=dev)
@@ -40,9 +45,6 @@ def ruiz_equilibrate(op, max_iter: int = 20, eps: float = 1e-6):
     def scaled(dr, dc):
         return op.scale(dr, dc) if cur is op else cur.scale_(dr, dc)
 
-    def worst(norms):
-        return torch.amax(torch.abs(1.0 - norms), dim=-1, keepdim=True)
-
     for _ in range(max_iter):
         row_norms = _safe(torch.sqrt(cur.row_abs_norms("inf")), eps)
         rn = torch.where(active, row_norms, 1.0)
@@ -52,8 +54,12 @@ def ruiz_equilibrate(op, max_iter: int = 20, eps: float = 1e-6):
         cn = torch.where(active, col_norms, 1.0)
         d_col = d_col / cn
         cur = scaled(ones_m, 1.0 / cn)
-        active = active & ~((worst(row_norms) < eps)
-                            & (worst(col_norms) < eps))
+        # The worst row and column: over the group under a mesh (one
+        # collective), so that every rank stops at the same pass.
+        worst_row, worst_col = reduce(
+            op.red, ("max", "y", torch.abs(1.0 - row_norms)),
+            ("max", "x", torch.abs(1.0 - col_norms)), kind="norm")
+        active = active & ~((worst_row < eps) & (worst_col < eps))
         if not bool(active.any()):
             break
     return cur, d_row, d_col
@@ -76,7 +82,7 @@ def scale_problem(op, c, q, l, u, *, method: str, ruiz_iters=20,
     for a stack of B, whose vectors are (B, m) / (B, n)); ones when
     method == "none"."""
     if method == "none":
-        m, n = op.shape
+        m, n = op.slice_shape
         lead, dtype, dev = op.batch_shape, op.dtype, op.device
         d_row = torch.ones(lead + (m,), dtype=dtype, device=dev)
         d_col = torch.ones(lead + (n,), dtype=dtype, device=dev)

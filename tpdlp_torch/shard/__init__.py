@@ -3,6 +3,8 @@
 from tpdlp_torch.shard.launch import run_ranks
 from tpdlp_torch.shard.mesh import (
     Mesh,
+    Placement,
+    gather_state,
     init_distributed,
     make_solver_mesh,
     pad_problem_arrays,
@@ -10,12 +12,15 @@ from tpdlp_torch.shard.mesh import (
     padded_sizes,
     padded_sizes_band,
     padded_sizes_sparse,
+    placement,
     shard_device_problem,
     shard_state,
 )
 
 __all__ = [
     "Mesh",
+    "Placement",
+    "gather_state",
     "init_distributed",
     "make_solver_mesh",
     "pad_problem_arrays",
@@ -23,6 +28,7 @@ __all__ = [
     "padded_sizes",
     "padded_sizes_band",
     "padded_sizes_sparse",
+    "placement",
     "run_ranks",
     "shard_device_problem",
     "shard_state",

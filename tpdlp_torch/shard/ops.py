@@ -1,26 +1,34 @@
 """Sharded operators: the JAX package's mesh layouts, with the collectives
 written out (see tpdlp_torch/shard/mesh.py for the design).
 
-Each operator holds only this rank's shard of K and of K', and runs the
-layout's own product on it:
+Each operator holds only this rank's shard of K and of K', and its
+products take this rank's slice of a vector and return this rank's slice
+of the result (`Placement`), with one collective each:
 
 - `ShardedDenseOp`: rank (r, c)'s (m/R, n/C) block of K as an
-  ExactDenseOp, so its products launch kernel K1 (`dense_matvec`, with
-  K1's alignment contract: rows padded to ROW_ALIGN, 16-byte bases) on the
-  block, against the block's slice of x (K x) or of y (K'y);
+  ExactDenseOp, so its products launch kernel K1 (`dense_matvec`) on the
+  block: K x_c, then an `all_reduce` over row r's C ranks gives y_r's
+  slice of K x; K'y_r, then an `all_reduce` over column c's R ranks gives
+  x_c's slice of K'y;
 - `ShardedBandOp`: the rank's contiguous range of 128-row groups of the K
-  and K' slabs, whose products launch kernel K2 (`band_matvec`) over those
-  groups against the whole vector (window starts stay global);
+  and K' slabs; a product `all_gather`s the gathered side from every
+  rank's strip, then launches kernel K2 (`band_matvec`) over those groups
+  against the whole vector (window starts stay global): the rank's strip
+  of the result, with no collective on the output;
 - `ShardedBlockEllOp`: the rank's range of 8-row strips of K's and K''s
   tiles, with the einsum of ops/blocked.py (no kernel, as in the JAX
-  package).
+  package), gathered as band is.
 
-A product writes the rank's partial into a zero-filled vector of full
-length and sums it over the group with one `all_reduce`: the full K x or
-K'y on every rank.  The scaling's row and column norms reduce the same way
-(MAX for the inf-norm, the SUM of |K|^p before the root otherwise).  Every
-shard is built on the host from K's triplets, and each rank moves only its
-own to its device.
+`mv_sums` / `rmv_sums` carry a few scalar partials of the gathered side's
+space (x for K x, y for K'y) on the same collective and return their sums
+over the whole space: a 2D row (column) holds every x (y) slice once, and
+a flat gather brings one partial from each rank, summed in rank order.
+The scaling's row and column norms return slices too: reduced over the
+row (column) subgroup in 2D (MAX for the inf-norm, the SUM of |K|^p before
+the root otherwise), local in flat, where every row lies whole in one
+strip; scaling a flat strip gathers the factors of the other space once.
+Every shard is built on the host from K's triplets, and each rank moves
+only its own to its device.
 """
 
 from __future__ import annotations
@@ -41,46 +49,68 @@ from tpdlp_torch.ops.blocked import (
     _unique,
 )
 from tpdlp_torch.ops.exact_dense import ExactDenseOp
+from tpdlp_torch.shard.mesh import Placement, placement
 
 
-def _aligned(v: torch.Tensor) -> torch.Tensor:
-    """`v`, or a copy of it when its base is off K1's 16-byte alignment (a
-    slice that starts inside a vector)."""
-    return v if v.data_ptr() % 16 == 0 else v.clone()
+def _summed(mesh, part: torch.Tensor, parts, over: str):
+    """(this rank's partial product `part` and the scalar partials
+    `parts`, each summed over the `over` subgroup by one all_reduce)."""
+    if not parts:
+        return mesh.all_reduce(part, over=over), ()
+    ln = part.shape[0]
+    buf = mesh.all_reduce(torch.cat([part, torch.stack(list(parts))]),
+                          over=over)
+    return buf[:ln], tuple(buf[ln:])
 
 
-def _place(mesh, part: torch.Tensor, start: int, length: int,
-           op: str = "sum", kind: str = "product") -> torch.Tensor:
-    """The full-length vector whose entries [start, start + len(part))
-    are this rank's `part`, reduced over the mesh's group."""
-    buf = part.new_zeros(length)
-    buf[start:start + part.shape[0]] = part
-    return mesh.all_reduce(buf, op, kind)
+def _gathered(mesh, strip: torch.Tensor, parts):
+    """(the whole vector of every rank's `strip`, the scalar partials
+    `parts` summed over the ranks in rank order), by one all_gather."""
+    ln = strip.shape[0]
+    buf = torch.cat([strip, torch.stack(list(parts))]) if parts else strip
+    G = mesh.all_gather(buf, "product")
+    return G[:, :ln].reshape(-1), tuple(G[:, ln:].sum(0))
 
 
 class _Sharded(LinOp):
-    """What the sharded operators share: the mesh and the padded (m, n)."""
+    """What the sharded operators share: the placement of their vectors
+    (`pl`: the mesh and the padded (m, n))."""
 
-    mesh: object
-    m: int
-    n: int
+    pl: Placement
+
+    @property
+    def mesh(self):
+        return self.pl.mesh
 
     @property
     def shape(self):
-        return (self.m, self.n)
+        return (self.pl.m, self.pl.n)
+
+    @property
+    def slice_shape(self):
+        (y0, y1), (x0, x1) = self.pl.y_span, self.pl.x_span
+        return (y1 - y0, x1 - x0)
+
+    @property
+    def red(self):
+        return self.pl.red
+
+    def mv(self, x):
+        return self.mv_sums(x)[0]
+
+    def rmv(self, y):
+        return self.rmv_sums(y)[0]
 
 
 @dataclasses.dataclass
 class ShardedDenseOp(_Sharded):
-    """Rank (r, c)'s block of a 2D-partitioned dense K: rows [r0, r0 + mb),
-    columns [c0, c0 + nb) of the padded (m, n) matrix."""
+    """Rank (r, c)'s block of a 2D-partitioned dense K: rows y_span,
+    columns x_span of the padded (m, n) matrix.  Its products take x_c and
+    y_r as tensors of their own, as every slice of a sharded solve is (K1
+    needs 16-byte aligned bases)."""
 
-    mesh: object
+    pl: Placement
     local: ExactDenseOp
-    m: int
-    n: int
-    r0: int
-    c0: int
 
     @property
     def dtype(self):
@@ -90,91 +120,76 @@ class ShardedDenseOp(_Sharded):
     def device(self):
         return self.local.device
 
-    def _cols(self, x):
-        return x[self.c0:self.c0 + self.local.n]
+    def mv_sums(self, x, parts=(), fast=False):
+        return _summed(self.mesh, self.local.mv(x), parts, "row")
 
-    def _rows(self, y):
-        return y[self.r0:self.r0 + self.local.m]
+    def rmv_sums(self, y, parts=(), fast=False):
+        return _summed(self.mesh, self.local.rmv(y), parts, "col")
 
-    def mv(self, x):
-        return _place(self.mesh, self.local.mv(_aligned(self._cols(x))),
-                      self.r0, self.m)
-
-    def rmv(self, y):
-        return _place(self.mesh, self.local.rmv(_aligned(self._rows(y))),
-                      self.c0, self.n)
-
-    def _norms(self, ord, dim, start, length):
+    def _norms(self, ord, dim, over):
         mat = self.local.mat
         if ord == "inf":
             part = torch.linalg.vector_norm(mat, float("inf"), dim=dim)
-            return _place(self.mesh, part, start, length, "max", "norm")
+            return self.mesh.all_reduce(part, "max", "norm", over)
         part = (mat.abs() ** ord).sum(dim=dim)
-        return _place(self.mesh, part, start, length, "sum",
-                      "norm") ** (1.0 / ord)
+        return self.mesh.all_reduce(part, "sum", "norm", over) ** (
+            1.0 / ord)
 
     def row_abs_norms(self, ord):
-        return self._norms(ord, 1, self.r0, self.m)
+        return self._norms(ord, 1, "row")
 
     def col_abs_norms(self, ord):
-        return self._norms(ord, 0, self.c0, self.n)
-
-    def _factors(self, d_row, d_col):
-        return self._rows(d_row), self._cols(d_col)
+        return self._norms(ord, 0, "col")
 
     def scale(self, d_row, d_col) -> "ShardedDenseOp":
-        return dataclasses.replace(
-            self, local=self.local.scale(*self._factors(d_row, d_col)))
+        return dataclasses.replace(self, local=self.local.scale(d_row,
+                                                                d_col))
 
     def scale_(self, d_row, d_col) -> "ShardedDenseOp":
-        self.local.scale_(*self._factors(d_row, d_col))
+        self.local.scale_(d_row, d_col)
         return self
 
 
 @dataclasses.dataclass
 class _FlatShardedOp(_Sharded):
-    """A rank's strip of a flat 1D partition: `fwd` holds rows [r0, r0 +
-    fwd.m) of K, `bwd` rows [c0, c0 + bwd.m) of K' (a BandMat or an
-    _EllMat over the whole padded vector space)."""
+    """A rank's strip of a flat 1D partition: `fwd` holds the rows y_span
+    of K, `bwd` the rows x_span of K' (a BandMat or an _EllMat over the
+    whole padded vector space)."""
 
-    mesh: object
+    pl: Placement
     fwd: object
     bwd: object
-    m: int
-    n: int
-    r0: int
-    c0: int
 
-    def mv(self, x):
-        return _place(self.mesh, self.fwd.matvec(x), self.r0, self.m)
+    def mv_sums(self, x, parts=(), fast=False):
+        full, sums = _gathered(self.mesh, x, parts)
+        return self.fwd.matvec(full), sums
 
-    def rmv(self, y):
-        return _place(self.mesh, self.bwd.matvec(y), self.c0, self.n)
-
-    def _norms(self, mat, ord, start, length):
-        # Each row lies whole in one rank's strip: the sum is exact.
-        return _place(self.mesh, mat.abs_norms(ord), start, length,
-                      "max" if ord == "inf" else "sum", "norm")
+    def rmv_sums(self, y, parts=(), fast=False):
+        full, sums = _gathered(self.mesh, y, parts)
+        return self.bwd.matvec(full), sums
 
     def row_abs_norms(self, ord):
-        return self._norms(self.fwd, ord, self.r0, self.m)
+        return self.fwd.abs_norms(ord)
 
     def col_abs_norms(self, ord):
-        return self._norms(self.bwd, ord, self.c0, self.n)
+        return self.bwd.abs_norms(ord)
 
     def _factors(self, d_row, d_col):
-        return (d_row[self.r0:self.r0 + self.fwd.m],
-                d_col[self.c0:self.c0 + self.bwd.m])
+        """(whole d_row, whole d_col) from this rank's slices, by one
+        all_gather: a strip's windows reach columns of every rank."""
+        ln = d_row.shape[0]
+        G = self.mesh.all_gather(torch.cat([d_row, d_col]), "norm")
+        return G[:, :ln].reshape(-1), G[:, ln:].reshape(-1)
 
     def scale(self, d_row, d_col):
-        dr, dc = self._factors(d_row, d_col)
-        return dataclasses.replace(self, fwd=self.fwd.scaled(dr, d_col),
-                                   bwd=self.bwd.scaled(dc, d_row))
+        row_all, col_all = self._factors(d_row, d_col)
+        return dataclasses.replace(self, fwd=self.fwd.scaled(d_row, col_all),
+                                   bwd=self.bwd.scaled(d_col, row_all))
 
     def scale_(self, d_row, d_col):
-        dr, dc = self._factors(d_row, d_col)
-        self.fwd.scale_(dr, d_col)
-        self.bwd.scale_(dc, d_row)
+        row_all, col_all = self._factors(d_row, d_col)
+        self.fwd.scale_(d_row, col_all)
+        self.bwd.scale_(d_col, row_all)
         return self
 
 
@@ -237,7 +252,7 @@ def dense_shard(K, mesh, dtype, device) -> ShardedDenseOp:
         block = np.asarray(K)[r0:r1, c0:c1]
     local = ExactDenseOp.build(torch.as_tensor(block, dtype=dtype,
                                                device=device))
-    return ShardedDenseOp(mesh, local, m, n, r0, c0)
+    return ShardedDenseOp(placement(mesh, "dense", m, n), local)
 
 
 def band_shard(K, mesh, dtype, device) -> ShardedBandOp:
@@ -245,7 +260,7 @@ def band_shard(K, mesh, dtype, device) -> ShardedBandOp:
     K is not band-like."""
     K = _coo(K)
     m, n = K.shape
-    mats, offsets = [], []
+    mats = []
     for M, rows in ((K, m), (K.T.tocoo(), n)):
         g0, g1 = _span(rows // GROUP_ROWS, mesh.size, mesh.rank)
         mat = _build_band(M, dtype, device, device_build=False,
@@ -253,9 +268,7 @@ def band_shard(K, mesh, dtype, device) -> ShardedBandOp:
         if mat is None:
             return None
         mats.append(mat)
-        offsets.append(g0 * GROUP_ROWS)
-    return ShardedBandOp(mesh, mats[0], mats[1], m, n, offsets[0],
-                         offsets[1])
+    return ShardedBandOp(placement(mesh, "band", m, n), *mats)
 
 
 def _ell_width(K: sp.coo_matrix) -> int:
@@ -273,7 +286,7 @@ def ell_shard(K, mesh, dtype, device) -> ShardedBlockEllOp:
     K, each direction with its whole layout's W."""
     K = _coo(K)
     m, n = K.shape
-    mats, offsets = [], []
+    mats = []
     for M, rows in ((K, m), (K.T.tocoo(), n)):
         s0, s1 = _span(rows // BR, mesh.size, mesh.rank)
         keep = (M.row >= s0 * BR) & (M.row < s1 * BR)
@@ -285,9 +298,7 @@ def ell_shard(K, mesh, dtype, device) -> ShardedBlockEllOp:
                                             device=device),
                             torch.as_tensor(e.col_idx, device=device),
                             e.m, e.n))
-        offsets.append(s0 * BR)
-    return ShardedBlockEllOp(mesh, mats[0], mats[1], m, n, offsets[0],
-                             offsets[1])
+    return ShardedBlockEllOp(placement(mesh, "sparse", m, n), *mats)
 
 
 def build_shard(K, layout: str, mesh, dtype, device):

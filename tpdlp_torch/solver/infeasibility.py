@@ -13,6 +13,13 @@ host, so the masks, bounds and constants that depend only on the problem
 and the tolerance are built once (`Cone`, the optional `cone` argument)
 instead of in every call: a Python scalar in `torch.where` would be a new
 device tensor each time.
+
+Each test is written as a generator of reduction rounds (the `_*_gen`
+functions; solver/reduce.py::staged): its norms first, then the tests of
+the rays they normalise.  The public functions run one; the loop
+(solver/loop.py::_certify) runs all of an iteration's side by side, so
+that under a mesh they cost two collectives together.  On one device each
+round is the exact calls, in the order they were always made.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from tpdlp_torch.config import Status
-from tpdlp_torch.solver.reduce import all_, dot, norm
+from tpdlp_torch.solver.reduce import staged
 
 _INF = float("inf")
 
@@ -91,19 +98,54 @@ def _normalize_all(cone, norm, *vs):
     return [torch.where(pos, v / safe, cone.zero) for v in vs]
 
 
+def _red(pb):
+    return getattr(pb, "red", None)
+
+
+def _primal_ray_terms(pb, r, k_r, tol, cone) -> list:
+    return [("norm", "y", torch.where(cone.eq_rows, k_r, cone.zero)),
+            ("all", "y", torch.where(cone.eq_rows, cone.inf, k_r) >= -tol),
+            ("dot", "x", pb.c, r),
+            ("all", "x", (r >= cone.r_lo) & (r <= cone.r_hi))]
+
+
+def _primal_ray_ok(vals, tol):
+    eq_norm, inequality_ok, c_r, bounds_ok = vals
+    # A NaN in r fails the strict descent test, so the cone test may pass
+    # it.
+    return (eq_norm <= tol) & inequality_ok & (c_r <= -tol) & bounds_ok
+
+
+def _dual_ray_terms(pb, yr, lr, kt_yr, tol, cone) -> list:
+    return [("norm", "x", kt_yr - lr),
+            ("all", "y", torch.where(cone.eq_rows, cone.zero, yr) >= -tol),
+            ("dot", "y", pb.q, yr),
+            ("dot", "x", pb.l_dual, torch.clamp_min(lr, 0.0)),
+            ("dot", "x", pb.u_dual, torch.clamp_max(lr, 0.0))]
+
+
+def _dual_ray_ok(vals, tol):
+    res_norm, dy_sign_ok, q_yr, lower, upper = vals
+    combo = q_yr + lower + upper
+    return (res_norm <= tol) & dy_sign_ok & (combo >= tol)
+
+
+def _primal_ray_gen(pb, r, k_r, tol, cone):
+    return _primal_ray_ok((yield _primal_ray_terms(pb, r, k_r, tol, cone)),
+                          tol)
+
+
+def _dual_ray_gen(pb, yr, lr, kt_yr, tol, cone):
+    return _dual_ray_ok(
+        (yield _dual_ray_terms(pb, yr, lr, kt_yr, tol, cone)), tol)
+
+
 def primal_ray_certifies(pb, r, k_r, tol, cone: Optional[Cone] = None):
     """Farkas conditions for a (unit-normalised) primal ray r with its
     product k_r = K r: A r ~ 0, G r >= -tol, strict descent c'r <= -tol,
     and recession-cone membership of [l, u]."""
     cone = cone or cone_of(pb, tol)
-    equality_ok = norm(
-        torch.where(cone.eq_rows, k_r, cone.zero)) <= tol
-    inequality_ok = all_(
-        torch.where(cone.eq_rows, cone.inf, k_r) >= -tol)
-    objective_ok = dot(pb.c, r) <= -tol  # strict descent along the ray
-    # A NaN in r fails objective_ok, so the cone test may pass it.
-    bounds_ok = all_((r >= cone.r_lo) & (r <= cone.r_hi))
-    return equality_ok & inequality_ok & objective_ok & bounds_ok
+    return staged(_red(pb), _primal_ray_gen(pb, r, k_r, tol, cone))[0]
 
 
 def dual_ray_certifies(pb, yr, lr, kt_yr, tol, cone: Optional[Cone] = None):
@@ -112,14 +154,7 @@ def dual_ray_certifies(pb, yr, lr, kt_yr, tol, cone: Optional[Cone] = None):
     and a strictly positive dual-objective growth rate (the adjusted-dual
     pairing)."""
     cone = cone or cone_of(pb, tol)
-    dual_res_ok = norm(kt_yr - lr) <= tol
-    dy_sign_ok = all_(torch.where(cone.eq_rows, cone.zero, yr) >= -tol)
-    combo = (
-        dot(pb.q, yr)
-        + dot(pb.l_dual, torch.clamp_min(lr, 0.0))
-        + dot(pb.u_dual, torch.clamp_max(lr, 0.0))
-    )
-    return dual_res_ok & dy_sign_ok & (combo >= tol)
+    return staged(_red(pb), _dual_ray_gen(pb, yr, lr, kt_yr, tol, cone))[0]
 
 
 def project_to_cone(cone: Cone, grad):
@@ -129,25 +164,58 @@ def project_to_cone(cone: Cone, grad):
     return torch.where(cone.free, cone.zero, out)
 
 
+def detect_gen(pb, x, y, x_prev, y_prev, lam, lam_prev, k_dx, kt_dy, tol,
+               cone: Cone):
+    """detect_infeasibility's rounds: the two rays' norms, then their
+    tests."""
+    dx = x - x_prev
+    dy = y - y_prev
+    dlam = lam - lam_prev
+    dx_norm, dy_dy, dlam_dlam = yield [("norm", "x", dx),
+                                       ("dot", "y", dy, dy),
+                                       ("dot", "x", dlam, dlam)]
+    # Dual infeasibility (a primal unbounded ray).
+    r, k_r = _normalize_all(cone, dx_norm, dx, k_dx)
+    # Primal infeasibility (a dual unbounded ray).
+    ray_norm = torch.sqrt(dy_dy + dlam_dlam)
+    yr, lr, kt_yr = _normalize_all(cone, ray_norm, dy, dlam, kt_dy)
+    vals = yield (_primal_ray_terms(pb, r, k_r, tol, cone)
+                  + _dual_ray_terms(pb, yr, lr, kt_yr, tol, cone))
+    return _verdict(cone, _primal_ray_ok(vals[:4], tol),
+                    _dual_ray_ok(vals[4:], tol))
+
+
 def detect_infeasibility(pb, x, y, x_prev, y_prev, lam, lam_prev, k_dx,
                          kt_dy, tol, cone: Optional[Cone] = None):
     """The ray certificates of one iterate difference: k_dx = K (x -
     x_prev) and kt_dy = K'(y - y_prev) come from the carried products.
     Returns an int32 status tensor."""
     cone = cone or cone_of(pb, tol)
-    dx = x - x_prev
-    dy = y - y_prev
-    dlam = lam - lam_prev
+    return staged(_red(pb), detect_gen(pb, x, y, x_prev, y_prev, lam,
+                                       lam_prev, k_dx, kt_dy, tol, cone))[0]
 
-    # Dual infeasibility (a primal unbounded ray).
-    r, k_r = _normalize_all(cone, norm(dx), dx, k_dx)
-    dual_infeasible = primal_ray_certifies(pb, r, k_r, tol, cone)
 
-    # Primal infeasibility (a dual unbounded ray).
-    ray_norm = torch.sqrt(dot(dy, dy) + dot(dlam, dlam))
-    yr, lr, kt_yr = _normalize_all(cone, ray_norm, dy, dlam, kt_dy)
-    primal_infeasible = dual_ray_certifies(pb, yr, lr, kt_yr, tol, cone)
-    return _verdict(cone, dual_infeasible, primal_infeasible)
+def validate_gen(pb, x_ray, kx_ray, y_ray, kty_ray, tol, cone: Cone):
+    """The rounds of validate_normalized_candidate: the rays' norms, then
+    their Farkas tests; returns (x_ray certifies, y_ray certifies)."""
+    x_norm, y_norm = yield [("norm", "x", x_ray), ("norm", "y", y_ray)]
+    r, k_r = _normalize_all(cone, x_norm, x_ray, kx_ray)
+    yr, kt_yr = _normalize_all(cone, y_norm, y_ray, kty_ray)
+    # The bound-multiplier recession cone is the lambda-projection cone, so
+    # lr = proj(K'yr) makes stationarity measure K'yr's distance from it.
+    lr = project_to_cone(cone, kt_yr)
+    vals = yield (_primal_ray_terms(pb, r, k_r, tol, cone)
+                  + _dual_ray_terms(pb, yr, lr, kt_yr, tol, cone))
+    return _primal_ray_ok(vals[:4], tol), _dual_ray_ok(vals[4:], tol)
+
+
+def keep_validated(cert, oks, cone: Cone):
+    """`cert` where its ray certifies (`oks` from validate_gen), else
+    RUNNING."""
+    ok_primal_ray, ok_dual_ray = oks
+    keep = torch.where(cert == int(Status.DUAL_INFEASIBLE), ok_primal_ray,
+                       (cert == int(Status.PRIMAL_INFEASIBLE)) & ok_dual_ray)
+    return torch.where(keep, cert, cone.running)
 
 
 def validate_normalized_candidate(pb, cert, x_ray, kx_ray, y_ray, kty_ray,
@@ -158,20 +226,23 @@ def validate_normalized_candidate(pb, cert, x_ray, kx_ray, y_ray, kty_ray,
     (The raw convergence trigger also fires on converging feasible solves;
     see the JAX package's docstring.)"""
     cone = cone or cone_of(pb, tol)
-    r, k_r = _normalize_all(cone, norm(x_ray), x_ray,
-                            kx_ray)
-    ok_primal_ray = primal_ray_certifies(pb, r, k_r, tol, cone)
+    oks = staged(_red(pb), validate_gen(pb, x_ray, kx_ray, y_ray, kty_ray,
+                                        tol, cone))[0]
+    return keep_validated(cert, oks, cone)
 
-    yr, kt_yr = _normalize_all(cone, norm(y_ray), y_ray,
-                               kty_ray)
-    # The bound-multiplier recession cone is the lambda-projection cone, so
-    # lr = proj(K'yr) makes stationarity measure K'yr's distance from it.
-    lr = project_to_cone(cone, kt_yr)
-    ok_dual_ray = dual_ray_certifies(pb, yr, lr, kt_yr, tol, cone)
 
-    keep = torch.where(cert == int(Status.DUAL_INFEASIBLE), ok_primal_ray,
-                       (cert == int(Status.PRIMAL_INFEASIBLE)) & ok_dual_ray)
-    return torch.where(keep, cert, cone.running)
+def iterate_gen(x, y, x_norm_prev, y_norm_prev, k, tol_conv, tol_nonzero,
+                cone):
+    """normalized_iterate_certificates' one round."""
+    kf = torch.clamp_min(k.to(x.dtype), 1.0)
+    x_norm = x / kf
+    y_norm = y / kf
+    x_step, x_size, y_step, y_size = yield [
+        ("norm", "x", x_norm - x_norm_prev), ("norm", "x", x_norm),
+        ("norm", "y", y_norm - y_norm_prev), ("norm", "y", y_norm)]
+    status = _verdict(cone, (x_step < tol_conv) & (x_size > tol_nonzero),
+                      (y_step < tol_conv) & (y_size > tol_nonzero))
+    return status, x_norm, y_norm
 
 
 def normalized_iterate_certificates(x, y, x_norm_prev, y_norm_prev, k,
@@ -179,16 +250,26 @@ def normalized_iterate_certificates(x, y, x_norm_prev, y_norm_prev, k,
                                     cone: Optional[Cone] = None):
     """x/k converging to a nonzero point => DUAL_INFEASIBLE; y/k likewise
     => PRIMAL_INFEASIBLE.  Returns (status, x_norm, y_norm), the last two
-    this iteration's normalized iterates, to carry to the next call."""
-    kf = torch.clamp_min(k.to(x.dtype), 1.0)
-    x_norm = x / kf
-    y_norm = y / kf
-    x_conv = norm(x_norm - x_norm_prev) < tol_conv
-    x_nonzero = norm(x_norm) > tol_nonzero
-    y_conv = norm(y_norm - y_norm_prev) < tol_conv
-    y_nonzero = norm(y_norm) > tol_nonzero
-    status = _verdict(cone, x_conv & x_nonzero, y_conv & y_nonzero)
-    return status, x_norm, y_norm
+    this iteration's normalized iterates, to carry to the next call (on
+    one device; the loop runs `iterate_gen`)."""
+    return staged(None, iterate_gen(x, y, x_norm_prev, y_norm_prev, k,
+                                   tol_conv, tol_nonzero, cone))[0]
+
+
+def average_gen(x_sum, y_sum, x, y, k, tol_conv, tol_nonzero, cone):
+    """normalized_average_certificates' one round."""
+    kf = torch.clamp_min(k.to(x.dtype), 2.0)
+    den = kf * (kf + 1.0)
+    den_prev = (kf - 1.0) * kf
+    avg_x = 2.0 * x_sum / den
+    avg_y = 2.0 * y_sum / den
+    prev_x = 2.0 * (x_sum - x) / den_prev
+    prev_y = 2.0 * (y_sum - y) / den_prev
+    x_step, x_size, y_step, y_size = yield [
+        ("norm", "x", avg_x - prev_x), ("norm", "x", avg_x),
+        ("norm", "y", avg_y - prev_y), ("norm", "y", avg_y)]
+    return _verdict(cone, (x_step < tol_conv) & (x_size > tol_nonzero),
+                    (y_step < tol_conv) & (y_size > tol_nonzero))
 
 
 def normalized_average_certificates(x_sum, y_sum, x, y, k, tol_conv=1e-4,
@@ -197,16 +278,7 @@ def normalized_average_certificates(x_sum, y_sum, x, y, k, tol_conv=1e-4,
     """avg_k = 2 (sum_{i<=k} x_i) / (k (k+1)) converging to a nonzero point
     => DUAL_INFEASIBLE (on y => PRIMAL_INFEASIBLE).  The previous average
     comes from the running sum, avg_{k-1} = 2 (sum - x_k) / ((k-1) k), so
-    `x_sum`/`y_sum` must already include this iteration's x/y."""
-    kf = torch.clamp_min(k.to(x.dtype), 2.0)
-    den = kf * (kf + 1.0)
-    den_prev = (kf - 1.0) * kf
-    avg_x = 2.0 * x_sum / den
-    avg_y = 2.0 * y_sum / den
-    prev_x = 2.0 * (x_sum - x) / den_prev
-    prev_y = 2.0 * (y_sum - y) / den_prev
-    x_conv = norm(avg_x - prev_x) < tol_conv
-    x_nonzero = norm(avg_x) > tol_nonzero
-    y_conv = norm(avg_y - prev_y) < tol_conv
-    y_nonzero = norm(avg_y) > tol_nonzero
-    return _verdict(cone, x_conv & x_nonzero, y_conv & y_nonzero)
+    `x_sum`/`y_sum` must already include this iteration's x/y (on one
+    device; the loop runs `average_gen`)."""
+    return staged(None, average_gen(x_sum, y_sum, x, y, k, tol_conv,
+                                   tol_nonzero, cone))[0]

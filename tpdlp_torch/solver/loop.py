@@ -40,14 +40,15 @@ from tpdlp_torch.config import SolverConfig, Status, fast_step_products
 from tpdlp_torch.solver import residuals as R
 from tpdlp_torch.solver import step as S
 from tpdlp_torch.solver.infeasibility import (
+    average_gen,
     cone_of,
-    detect_infeasibility,
-    normalized_average_certificates,
-    normalized_iterate_certificates,
+    detect_gen,
+    iterate_gen,
+    keep_validated,
     project_to_cone,
-    validate_normalized_candidate,
+    validate_gen,
 )
-from tpdlp_torch.solver.reduce import dot, norm
+from tpdlp_torch.solver.reduce import reduce, staged
 from tpdlp_torch.solver.state import PDHGState
 
 _RUNNING = int(Status.RUNNING)
@@ -64,12 +65,15 @@ def reset_launched() -> None:
         launched[name] = 0
 
 
-def primal_weight_update(x_restart, x, y_restart, y, omega, theta_smooth):
-    """Log-smoothed primal-weight update:
+def _pwu_terms(x_restart, x, y_restart, y) -> list:
+    """The two norms of the primal-weight update, as requests."""
+    return [("norm", "x", x_restart - x), ("norm", "y", y_restart - y)]
+
+
+def _pwu_from(dx, dy, omega, theta_smooth):
+    """Log-smoothed primal-weight update from ||dx|| and ||dy||:
     omega <- exp(theta log(||dy||/||dx||) + (1-theta) log(omega)),
     guarded on nonzero iterate movement."""
-    dx = norm(x_restart - x)
-    dy = norm(y_restart - y)
     new = torch.exp(
         theta_smooth * torch.log(dy / dx)
         + (1.0 - theta_smooth) * torch.log(omega)
@@ -77,12 +81,9 @@ def primal_weight_update(x_restart, x, y_restart, y, omega, theta_smooth):
     return torch.where((dx > 0) & (dy > 0), new, omega)
 
 
-def _clamped_pwu(x_restart, x, y_restart, y, omega, omega_init, cfg):
-    """primal_weight_update clamped to cfg.omega_clamp decades around the
-    initial omega; no clamp when omega_clamp == 0."""
-    new = primal_weight_update(
-        x_restart, x, y_restart, y, omega, cfg.theta_smooth
-    )
+def _clamped(new, omega_init, cfg):
+    """The updated primal weight clamped to cfg.omega_clamp decades around
+    the initial omega; no clamp when omega_clamp == 0."""
     if not cfg.omega_clamp:
         return new
     return torch.clamp(
@@ -125,22 +126,30 @@ def _flag_divergence(st: PDHGState, kkt_a, kkt_b):
     return st.replace(status=status), diverged
 
 
-def _omega_after(cfg, st, x_r, y_r):
-    """The primal weight after a restart to (x_r, y_r)."""
-    if not cfg.primal_weight_update:
-        return st.omega
-    return _clamped_pwu(st.x_restart, x_r, st.y_restart, y_r, st.omega,
-                        st.omega_init, cfg)
-
-
-def _restart_to(pb, cfg, st, do_restart, x_r, y_r, kx_r, kty_r, omega_new,
-                **extra):
+def _restart_to(pb, cfg, st, do_restart, x_r, y_r, kx_r, kty_r,
+                res_r=None, **extra):
     """On `do_restart`, move to the candidate (x_r, y_r): the reference's
     outer-loop tail (reset averages and the restart point, the new primal
-    weight, termination on the unscaled problem, j += 2).  `extra` gives
-    further fields their restart values.  Both branches are computed and
-    selected (no host read)."""
-    res_term = R.residuals_unscaled(pb, x_r, y_r, kx_r, kty_r)
+    weight, termination on the unscaled problem, j += 2).  `res_r`: the
+    candidate's scaled residuals, whose KKT error under the new weight
+    becomes kkt_first; `extra` gives further fields their restart values.
+    Both branches are computed and selected (no host read); the new
+    weight's and the termination's reductions share one `reduce`."""
+    reqs = R.unscaled_terms(pb, x_r, y_r, kx_r, kty_r)
+    if cfg.primal_weight_update:
+        reqs += _pwu_terms(st.x_restart, x_r, st.y_restart, y_r)
+    vals = reduce(pb.red, *reqs)
+    res_term = R.residuals_from(vals[:6])
+    omega_new = st.omega
+    if cfg.primal_weight_update:
+        omega_new = _clamped(_pwu_from(*vals[6:], st.omega,
+                                       cfg.theta_smooth),
+                             st.omega_init, cfg)
+    if res_r is not None:
+        # KKT_first refresh under the (possibly updated) omega: only the
+        # weighting changes, so no new product (the +2 of a restart keeps
+        # the reference's ledger entries for it and the termination pass).
+        extra["kkt_first"] = R.kkt_error(res_r, omega_new)
     solved = R.check_termination(
         res_term, pb.q_norm_term, pb.c_norm_term, cfg.tol,
         abs_gap=cfg.abs_gap_termination,
@@ -167,6 +176,15 @@ def _restart_to(pb, cfg, st, do_restart, x_r, y_r, kx_r, kty_r, omega_new,
     )
 
 
+def _residuals(pb, *points):
+    """Scaled residuals of each (x, y, kx, kty) point, their reductions in
+    one `reduce`."""
+    vals = reduce(pb.red, *(t for p in points
+                            for t in R.scaled_terms(pb, *p)))
+    return [R.residuals_from(vals[6 * i:6 * i + 6])
+            for i in range(len(points))]
+
+
 def _restart_check(pb, cfg: SolverConfig, st: PDHGState) -> PDHGState:
     """The every-restart_period evaluation of the vanilla scheme (three
     candidates: current, average, previous) plus, on restart, the
@@ -181,10 +199,9 @@ def _restart_check(pb, cfg: SolverConfig, st: PDHGState) -> PDHGState:
     kx_cur, kty_cur = _fresh_products(pb, cfg, st.x, st.y, st.kx, st.kty)
     st = st.replace(kx=kx_cur, kty=kty_cur)
 
-    res_cur = R.residuals_scaled(pb, st.x, st.y, st.kx, st.kty)
-    res_avg = R.residuals_scaled(pb, x_avg, y_avg, kx_avg, kty_avg)
-    res_prev = R.residuals_scaled(pb, st.x_prev, st.y_prev, st.kx_prev,
-                                  st.kty_prev)
+    res_cur, res_avg, res_prev = _residuals(
+        pb, (st.x, st.y, st.kx, st.kty), (x_avg, y_avg, kx_avg, kty_avg),
+        (st.x_prev, st.y_prev, st.kx_prev, st.kty_prev))
     kkt_cur = R.kkt_error(res_cur, st.omega)
     kkt_avg = R.kkt_error(res_avg, st.omega)
     kkt_prev = R.kkt_error(res_prev, st.omega)
@@ -214,14 +231,9 @@ def _restart_check(pb, cfg: SolverConfig, st: PDHGState) -> PDHGState:
         ))
     )
     x_r, y_r = sel(x_avg, st.x), sel(y_avg, st.y)
-    omega_new = _omega_after(cfg, st, x_r, y_r)
-    # KKT_first refresh under the (possibly updated) omega: only the
-    # weighting changes, so no new product (the +2 of a restart keeps the
-    # reference's ledger entries for it and the termination pass).
     return _restart_to(
         pb, cfg, st, do_restart, x_r, y_r, sel(kx_avg, st.kx),
-        sel(kty_avg, st.kty), omega_new,
-        kkt_first=R.kkt_error(res_r, omega_new),
+        sel(kty_avg, st.kty), res_r,
     )
 
 
@@ -243,8 +255,8 @@ def _restart_check_halpern(pb, cfg: SolverConfig, st: PDHGState) -> PDHGState:
     kx_avg = pb.op.mv(x_avg)
     kty_avg = pb.op.rmv(y_avg)
 
-    res_f = R.residuals_scaled(pb, x_f, y_f, kx_f, kty_f)
-    res_avg = R.residuals_scaled(pb, x_avg, y_avg, kx_avg, kty_avg)
+    res_f, res_avg = _residuals(pb, (x_f, y_f, kx_f, kty_f),
+                                (x_avg, y_avg, kx_avg, kty_avg))
     kkt_f = R.kkt_error(res_f, st.omega)
     kkt_avg = R.kkt_error(res_avg, st.omega)
     st = st.replace(j=st.j + 2)
@@ -265,7 +277,6 @@ def _restart_check_halpern(pb, cfg: SolverConfig, st: PDHGState) -> PDHGState:
     zero = torch.zeros((), dtype=dtype, device=st.x.device)
     return _restart_to(
         pb, cfg, st, do_restart, x_r, y_r, kx_r, kty_r,
-        _omega_after(cfg, st, x_r, y_r),
         x_prev=x_r, y_prev=y_r, kx_prev=kx_r, kty_prev=kty_r,
         # Re-measured at the first iteration of the new cycle.
         kkt_first=zero, fp_res=zero,
@@ -283,24 +294,44 @@ def _certify(pb, cfg: SolverConfig, cone, st2, k_new, x_new, y_new,
     the (new, old) difference and of the difference from the restart point,
     then the normalized-iterate and normalized-average families.  Shared by
     the vanilla and Halpern iterations, which differ only in which pair is
-    feasible.  `cone`: `cone_of(pb, cfg.infeas_tol)`."""
+    feasible.  `cone`: `cone_of(pb, cfg.infeas_tol)`.  Every test runs
+    side by side (`staged`): two rounds of reductions in all."""
     tol = cfg.infeas_tol
+    gens = []
     if cfg.infeasibility_detect:
         lam = project_to_cone(cone, pb.c - kty_new)
-        cert = detect_infeasibility(
-            pb, x_new, y_new, x_old, y_old, lam, st2.lam_prev,
-            kx_new - kx_old, kty_new - kty_old, tol, cone,
-        )
         # The restart-window ray: adaptive steps make consecutive diffs
         # noisy, and the diff from the last restart point averages that
         # out.  Its products and lambda come from the carried restart
         # products: no K product.
         lam_restart = project_to_cone(cone, pb.c - st2.kty_restart)
-        cert_win = detect_infeasibility(
-            pb, x_new, y_new, st2.x_restart, st2.y_restart, lam,
-            lam_restart, kx_new - st2.kx_restart,
-            kty_new - st2.kty_restart, tol, cone,
-        )
+        gens += [
+            detect_gen(pb, x_new, y_new, x_old, y_old, lam, st2.lam_prev,
+                       kx_new - kx_old, kty_new - kty_old, tol, cone),
+            detect_gen(pb, x_new, y_new, st2.x_restart, st2.y_restart, lam,
+                       lam_restart, kx_new - st2.kx_restart,
+                       kty_new - st2.kty_restart, tol, cone),
+        ]
+    if cfg.normalized_certificates:
+        xs = st2.x_plain_sum + x_new
+        ys = st2.y_plain_sum + y_new
+        kxs = st2.kx_plain_sum + kx_new
+        ktys = st2.kty_plain_sum + kty_new
+        conv, nonzero = cfg.normalized_tol_conv, cfg.normalized_tol_nonzero
+        gens += [
+            iterate_gen(x_new, y_new, st2.x_norm_prev, st2.y_norm_prev,
+                        k_new, conv, nonzero, cone),
+            # Rays are normalised inside, so the iterate and its carried
+            # products stand in for x/k and Kx/k.
+            validate_gen(pb, x_new, kx_new, y_new, kty_new, tol, cone),
+            average_gen(xs, ys, x_new, y_new, k_new, conv, nonzero, cone),
+            validate_gen(pb, xs, kxs, ys, ktys, tol, cone),
+        ]
+    out = staged(pb.red, *gens)
+
+    if cfg.infeasibility_detect:
+        cert, cert_win = out[:2]
+        out = out[2:]
         cert = torch.where(cert != _RUNNING, cert, cert_win)
         # Needs two iterates (the reference's k > 1 guard), which also
         # gates lam_prev and the KKT pass.
@@ -312,24 +343,9 @@ def _certify(pb, cfg: SolverConfig, cone, st2, k_new, x_new, y_new,
         )
 
     if cfg.normalized_certificates:
-        cert, x_norm, y_norm = normalized_iterate_certificates(
-            x_new, y_new, st2.x_norm_prev, st2.y_norm_prev, k_new,
-            cfg.normalized_tol_conv, cfg.normalized_tol_nonzero, cone,
-        )
-        # Rays are normalised inside, so the iterate and its carried
-        # products stand in for x/k and Kx/k.
-        cert = validate_normalized_candidate(
-            pb, cert, x_new, kx_new, y_new, kty_new, tol, cone)
-        xs = st2.x_plain_sum + x_new
-        ys = st2.y_plain_sum + y_new
-        kxs = st2.kx_plain_sum + kx_new
-        ktys = st2.kty_plain_sum + kty_new
-        cert_avg = normalized_average_certificates(
-            xs, ys, x_new, y_new, k_new,
-            cfg.normalized_tol_conv, cfg.normalized_tol_nonzero, cone,
-        )
-        cert_avg = validate_normalized_candidate(
-            pb, cert_avg, xs, kxs, ys, ktys, tol, cone)
+        (cert, x_norm, y_norm), oks, cert_avg, oks_avg = out
+        cert = keep_validated(cert, oks, cone)
+        cert_avg = keep_validated(cert_avg, oks_avg, cone)
         fireable = k_new > 2  # both families need two history points
         status = torch.where(
             (cert != _RUNNING) & fireable, cert,
@@ -349,27 +365,28 @@ def make_live(pb, cfg: SolverConfig):
     """One ungated PDHG iteration of cfg.step_scheme, certificates included
     and without the restart check (the runners schedule it).  Halpern with
     the adaptive rule raises the JAX package's ValueError."""
-    mv_rmv = S.step_mv(pb, cfg)
     cone = (cone_of(pb, cfg.infeas_tol)
             if cfg.infeasibility_detect or cfg.normalized_certificates
             else None)
+    halpern = cfg.step_scheme == "halpern"
 
     def take_step(st: PDHGState, k_new):
-        """The configured step and K'y of its output (feasible)."""
+        """The configured step, K'y of its output (feasible) included;
+        under Halpern with its dx'dx and dy'dy."""
         if cfg.adaptive:
-            result = S.adaptive_step(
+            return S.adaptive_step(
                 pb, cfg, st.x, st.y, st.kx, st.kty, st.eta, st.omega, k_new
             )
-        else:
-            result = S.fixed_step(
-                pb, cfg, st.x, st.y, st.kx, st.kty, st.eta, st.omega
-            )
-        return result, mv_rmv[1](result.y)
+        return S.fixed_step(
+            pb, cfg, st.x, st.y, st.kx, st.kty, st.eta, st.omega,
+            dots=halpern,
+        )
 
     def live_body(st: PDHGState) -> PDHGState:
         k_new = st.k + 1
-        result, kty_new = take_step(st, k_new)
-        x_new, y_new, kx_new, eta_used, eta_next, j_inc = result
+        result = take_step(st, k_new)
+        x_new, y_new, kx_new, eta_used, eta_next, j_inc, kty_new, _ = (
+            result)
         st2 = st.replace(
             x=x_new, y=y_new, kx=kx_new, kty=kty_new,
             x_prev=st.x, y_prev=st.y, kx_prev=st.kx, kty_prev=st.kty,
@@ -393,8 +410,8 @@ def make_live(pb, cfg: SolverConfig):
         T(z_t) is feasible and is what the certificates, the averages and
         the restart candidates use (held in the *_prev slots)."""
         k_new = st.k + 1
-        result, kty_f = take_step(st, k_new)
-        x_f, y_f, kx_f, eta_used, eta_next, j_inc = result
+        result = take_step(st, k_new)
+        x_f, y_f, kx_f, eta_used, eta_next, j_inc, kty_f, dots = result
         st2 = st.replace(k=k_new, j=st.j + j_inc)
         st2 = _certify(pb, cfg, cone, st2, k_new, x_f, y_f, kx_f, kty_f,
                        st.x_prev, st.y_prev, st.kx_prev, st.kty_prev)
@@ -410,13 +427,12 @@ def make_live(pb, cfg: SolverConfig):
         z_kx = w * (2.0 * kx_f - st.kx) + wa * st.kx_restart
         z_kty = w * (2.0 * kty_f - st.kty) + wa * st.kty_restart
 
-        # The omega-weighted fixed-point residual ||z - T(z)||, in exact
-        # dots (neither torch.dot nor a row sum takes a TF32 path); its
-        # value at t == 1 is the cycle's baseline (kkt_first).
-        dx = x_f - st.x
-        dy = y_f - st.y
-        fp = torch.sqrt(st.omega * dot(dx, dx)
-                        + dot(dy, dy) / st.omega)
+        # The omega-weighted fixed-point residual ||z - T(z)||, from the
+        # step's exact dots dx'dx and dy'dy (dx = x_f - z_x; neither
+        # torch.dot nor a row sum takes a TF32 path); its value at t == 1
+        # is the cycle's baseline (kkt_first).
+        dxdx, dydy = dots
+        fp = torch.sqrt(st.omega * dxdx + dydy / st.omega)
         return st2.replace(
             fp_res=fp,
             kkt_first=torch.where(t_new == 1, fp, st2.kkt_first),

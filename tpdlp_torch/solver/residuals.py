@@ -1,6 +1,12 @@
 """Residuals, duality gap, KKT error and termination (counterpart of
 tpdlp/solver/residuals.py).  Pure tensor math: nothing here reads the
-device from the host."""
+device from the host.
+
+The six reductions of one point are requests (`residual_terms`), so that a
+restart check hands those of all its candidates to one
+`solver/reduce.py::reduce` (one collective under a mesh);
+`residuals_from` assembles them (`residuals_unscaled` does both for
+one point)."""
 
 from __future__ import annotations
 
@@ -8,7 +14,7 @@ import dataclasses
 
 import torch
 
-from tpdlp_torch.solver.reduce import dot, norm
+from tpdlp_torch.solver.reduce import reduce
 
 
 def project_lambda_box(grad, is_neg_inf, is_pos_inf):
@@ -40,56 +46,62 @@ class Residuals:
     adjusted_dual: torch.Tensor
 
 
-def compute_residuals(
-    x, y, kx, kty, c, q, l_dual, u_dual, ineq_mask, is_neg_inf, is_pos_inf
-) -> Residuals:
-    """Primal/dual residual norms, duality gap and objectives from the
-    carried products kx = K x and kty = K'y (O(n + m) vector work).
+def residual_terms(x, y, kx, kty, c, q, l_dual, u_dual, ineq_mask,
+                   is_neg_inf, is_pos_inf) -> list:
+    """The six reduction requests of one point's residuals, from the
+    carried products kx = K x and kty = K'y (O(n + m) vector work):
+    c'x, q'y, l_dual'max(lam,0), u_dual'min(lam,0) and the norms of
 
-    primal residual = || [A x - b ; min(G x - h, 0)] ||_2
-    dual residual   = || (c - K'y) - lambda ||_2
-    adjusted dual   = q'y + l_dual'max(lam,0) + u_dual'min(lam,0)
-    gap             = adjusted_dual - c'x
+    primal residual = [A x - b ; min(G x - h, 0)]
+    dual residual   = (c - K'y) - lambda
     """
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     grad = c - kty
     lam = project_lambda_box(grad, is_neg_inf, is_pos_inf)
-
-    prim_obj = dot(c, x)
-    dual_obj = dot(q, y)
-    adjusted_dual = (
-        dual_obj
-        + dot(l_dual, torch.maximum(lam, zero))
-        + dot(u_dual, torch.minimum(lam, zero))
-    )
-    gap = adjusted_dual - prim_obj
-
     full_res = kx - q
     # Inequality rows G x >= h only penalise violation.
     res = torch.where(ineq_mask, torch.minimum(full_res, zero), full_res)
-    primal_res = norm(res)
-    dual_res = norm(grad - lam)
+    return [("dot", "x", c, x), ("dot", "y", q, y),
+            ("dot", "x", l_dual, torch.maximum(lam, zero)),
+            ("dot", "x", u_dual, torch.minimum(lam, zero)),
+            ("norm", "y", res), ("norm", "x", grad - lam)]
+
+
+def residuals_from(vals) -> Residuals:
+    """Residuals from the values of `residual_terms`:
+    adjusted dual = q'y + l_dual'max(lam,0) + u_dual'min(lam,0),
+    gap = adjusted_dual - c'x."""
+    prim_obj, dual_obj, lower, upper, primal_res, dual_res = vals
+    adjusted_dual = dual_obj + lower + upper
+    gap = adjusted_dual - prim_obj
     return Residuals(primal_res, dual_res, gap, prim_obj, adjusted_dual)
 
 
-def residuals_scaled(pb, x, y, kx, kty) -> Residuals:
-    """Residuals of the (scaled) working problem — the restart metric."""
-    return compute_residuals(
+def scaled_terms(pb, x, y, kx, kty) -> list:
+    """residual_terms of the (scaled) working problem — the restart
+    metric."""
+    return residual_terms(
         x, y, kx, kty,
         pb.c, pb.q, pb.l_dual, pb.u_dual,
         pb.ineq_mask, pb.is_neg_inf, pb.is_pos_inf,
     )
 
 
-def residuals_unscaled(pb, x, y, kx, kty) -> Residuals:
-    """Residuals of the original problem from scaled iterates, via
+def unscaled_terms(pb, x, y, kx, kty) -> list:
+    """residual_terms of the original problem from scaled iterates, via
     x_orig = d_col * x, y_orig = d_row * y, K x_orig = kx / d_row and
     K' y_orig = kty / d_col (no unscaled matrix needed)."""
-    return compute_residuals(
+    return residual_terms(
         pb.d_col * x, pb.d_row * y, kx / pb.d_row, kty / pb.d_col,
         pb.c0, pb.q0, pb.l0_dual, pb.u0_dual,
         pb.ineq_mask, pb.is_neg_inf, pb.is_pos_inf,
     )
+
+
+def residuals_unscaled(pb, x, y, kx, kty) -> Residuals:
+    """Residuals of the original problem from scaled iterates."""
+    return residuals_from(reduce(pb.red, *unscaled_terms(pb, x, y, kx,
+                                                          kty)))
 
 
 def kkt_error(res: Residuals, omega):

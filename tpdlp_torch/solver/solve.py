@@ -13,9 +13,11 @@ continues from the saved state.
 `mesh=` (tpdlp_torch/shard) solves one LP sharded over the ranks of a
 torch.distributed group: the operator of the JAX package's mesh layout
 (dense 2D blocks, band or block-ELL flat strips), built on the host shard
-by shard, each rank's products over its own shard with one all_reduce
-each, every vector replicated; the result on every rank is the full x and
-y.
+by shard, each rank's products over its own shard with one collective
+each; every vector is cut on the host to the rank's slice of its space, as
+the JAX package places it (shard/mesh.py::Placement), and the solver's
+reductions run over the group (solver/reduce.py); the result on every
+rank is the full x and y, gathered.
 
 With dtype=None on CUDA (fp32) and `tol` below `escalation_tol`, the solve
 escalates as the JAX package's does: `escalation_mode` "auto" and "refine"
@@ -58,6 +60,7 @@ from tpdlp_torch.shard import mesh as shard_mesh
 from tpdlp_torch.solver.checkpoint import load_state, npz_path, save_state
 from tpdlp_torch.solver.loop import final_eval, read_ints, run_chunk
 from tpdlp_torch.solver.power_iteration import spectral_norm_estimate
+from tpdlp_torch.solver.reduce import reduce
 from tpdlp_torch.solver.state import init_state
 
 
@@ -121,8 +124,7 @@ def eta_omega_of(pb, seed: int, cfg: SolverConfig, om0=None):
     eta0 = cfg.eta_safety / spectral_norm_estimate(
         pb.op, seed, cfg.power_iters
     )
-    c_norm = torch.linalg.vector_norm(pb.c)
-    q_norm = torch.linalg.vector_norm(pb.q)
+    c_norm, q_norm = reduce(pb.red, ("norm", "x", pb.c), ("norm", "y", pb.q))
     one = torch.ones((), dtype=pb.c.dtype, device=pb.c.device)
     omega0 = torch.where(
         (q_norm > 1e-6) & (c_norm > 1e-6), c_norm / q_norm, one
@@ -167,7 +169,8 @@ def _device_arrays(problem, dtype, dev, op_cache, matrix_format,
                    mesh=None):
     """(op, c, q, l, u) on the device; the operator comes from `op_cache`
     when it holds one for this layout, dtype, device and K's shape (and
-    mesh shape, under a mesh)."""
+    mesh shape, under a mesh, where `problem` holds this rank's slices of
+    the vectors and the whole padded K)."""
     key = (matrix_format, str(dtype), str(dev), problem.K.shape)
     if mesh is not None:
         key += (mesh.shape,)
@@ -197,8 +200,10 @@ def mesh_layout(matrix_format: str, m: int, n: int, dtype) -> str:
 
 
 def _padded_problem(problem, mesh, layout: str):
-    """The mesh-padded problem of `layout` (K's triplets and the vectors,
-    padded as `shard.mesh.pad_vectors` says) and its inequality mask."""
+    """The mesh-padded problem of `layout` (K's triplets, padded as
+    `shard.mesh.pad_vectors` says, and this rank's slices of the padded
+    vectors), this rank's slice of its inequality mask, and the vectors'
+    placement."""
     import types
 
     import scipy.sparse as sp
@@ -208,6 +213,7 @@ def _padded_problem(problem, mesh, layout: str):
              "band": shard_mesh.padded_sizes_band,
              "sparse": shard_mesh.padded_sizes_sparse}[layout]
     m_pad, n_pad = sizes(m, n, mesh)
+    pl = shard_mesh.placement(mesh, layout, m_pad, n_pad)
     K = problem.K
     coo = K.tocoo() if sp.issparse(K) else sp.coo_matrix(np.asarray(K))
     K_p = sp.coo_matrix((coo.data, (coo.row, coo.col)), shape=(m_pad, n_pad))
@@ -215,7 +221,9 @@ def _padded_problem(problem, mesh, layout: str):
         *(np.asarray(v, np.float64) for v in (problem.c, problem.q,
                                               problem.l, problem.u)),
         np.arange(m) < problem.m_ineq, m_pad, n_pad)
-    return types.SimpleNamespace(K=K_p, c=c, q=q, l=l, u=u), mask
+    return types.SimpleNamespace(
+        K=K_p, c=pl.cut_x(c), q=pl.cut_y(q), l=pl.cut_x(l),
+        u=pl.cut_x(u)), pl.cut_y(mask), pl
 
 
 def build_device_problem(op, c, q, l, u, ineq_mask, cfg: SolverConfig):
@@ -244,14 +252,15 @@ def build_device_problem(op, c, q, l, u, ineq_mask, cfg: SolverConfig):
 
 def _layout_of(problem, mesh, matrix_format, dtype, dev):
     """(the problem the device arrays come from, its layout, its
-    inequality mask on `dev`): the problem itself, or under a mesh its
-    padded form and the sharded layout `matrix_format` names."""
+    inequality mask on `dev`, the placement): the problem itself (and
+    None), or under a mesh its padded form, this rank's slices, and the
+    sharded layout `matrix_format` names."""
     if mesh is None:
         return (problem, matrix_format,
-                torch.arange(problem.m, device=dev) < problem.m_ineq)
+                torch.arange(problem.m, device=dev) < problem.m_ineq, None)
     layout = mesh_layout(matrix_format, problem.m, problem.n, dtype)
-    padded, mask = _padded_problem(problem, mesh, layout)
-    return padded, layout, torch.as_tensor(mask, device=dev)
+    padded, mask, pl = _padded_problem(problem, mesh, layout)
+    return padded, layout, torch.as_tensor(mask, device=dev), pl
 
 
 def prepare(problem, cfg: SolverConfig, *, dtype, device=None, mesh=None,
@@ -259,10 +268,10 @@ def prepare(problem, cfg: SolverConfig, *, dtype, device=None, mesh=None,
     """(pb, state): a solve's preprocessing (the operator of the layout,
     scaling, the power-iteration stepsize, the initial state), from which
     the harnesses time chunks of `solver/loop.py::run_chunk`.  Under a
-    mesh every vector has its padded length."""
+    mesh every vector is this rank's slice of its padded space."""
     dev = resolve_device(device)
-    arrays_of, layout, mask = _layout_of(as_problem(problem), mesh,
-                                         matrix_format, dtype, dev)
+    arrays_of, layout, mask, _ = _layout_of(as_problem(problem), mesh,
+                                            matrix_format, dtype, dev)
     om0 = torch.tensor(np.nan, dtype=dtype, device=dev)
     pb, st, _ = _prepare(
         lambda: _device_arrays(arrays_of, dtype, dev, None, layout, mesh),
@@ -293,17 +302,18 @@ def _prepare(arrays, ineq_mask, seed, x0, y0, om0, cfg: SolverConfig):
     return pb, init_state(pb, eta0, omega0, x0, y0), t_arrays
 
 
-def _resumed_state(path, pb, cfg: SolverConfig, dtype, dev, mesh, st):
+def _resumed_state(path, pb, cfg: SolverConfig, dtype, dev, pl, st):
     """The checkpointed state on the device, its anchor products
     recomputed from the operator (they must equal K x_restart and
     K'y_restart; older checkpoints lack them).  Under Halpern the
     restart baseline is zeroed, so the criterion re-baselines at the next
-    restart, as the JAX package does.  Under a mesh rank 0 reads the file
-    and broadcasts the state into the shapes of `st`."""
-    if mesh is None or mesh.rank == 0:
+    restart, as the JAX package does.  Under a mesh (`pl`, the placement)
+    rank 0 reads the file and every rank takes its slices of that state
+    (`st` gives the others the dtypes)."""
+    if pl is None or pl.mesh.rank == 0:
         st = load_state(path, dtype=dtype, device=dev)
-    if mesh is not None:
-        st = shard_mesh.shard_state(st, mesh)
+    if pl is not None:
+        st = shard_mesh.shard_state(st, pl)
     st = st.replace(kx_restart=pb.op.mv(st.x_restart),
                     kty_restart=pb.op.rmv(st.y_restart))
     if cfg.step_scheme == "halpern":
@@ -312,14 +322,18 @@ def _resumed_state(path, pb, cfg: SolverConfig, dtype, dev, mesh, st):
     return st
 
 
-def _extract(pb, st, use_prev: bool = False):
-    """Unscaled solution and objective (x = d_col x_s, y = d_row y_s).
+def _extract(pb, st, use_prev: bool = False, pl=None):
+    """Unscaled solution and objective (x = d_col x_s, y = d_row y_s), the
+    whole (padded) x and y on every rank under a mesh (`pl`).
 
     `use_prev` (Halpern scheme): report the last feasible PDHG output (the
     *_prev slots); the carried z iterate may lie outside the box."""
     x = pb.d_col * (st.x_prev if use_prev else st.x)
     y = pb.d_row * (st.y_prev if use_prev else st.y)
-    return x, y, torch.dot(pb.c0, x)
+    (obj,) = reduce(pb.red, ("dot", "x", pb.c0, x))
+    if pl is not None:
+        x, y = pl.gather(("x", x), ("y", y))
+    return x, y, obj
 
 
 #: The operator layouts `matrix_format` names.
@@ -562,11 +576,11 @@ def solve(
     dtype = _as_dtype(dtype)
 
     m, n = problem.m, problem.n
-    # Under a mesh every vector below has its padded length; the results
-    # are cut back to (n,) and (m,).
-    arrays_of, layout, mask = _layout_of(problem, mesh, matrix_format,
-                                         dtype, dev)
-    n_op, m_op = len(arrays_of.c), len(arrays_of.q)
+    # Under a mesh every vector below is this rank's slice of its padded
+    # space; the gathered results are cut back to (n,) and (m,).
+    arrays_of, layout, mask, pl = _layout_of(problem, mesh, matrix_format,
+                                             dtype, dev)
+    n_op, m_op = (n, m) if pl is None else (pl.n, pl.m)
     om0 = torch.tensor(np.nan if omega0 is None else float(omega0),
                        dtype=dtype, device=dev)
     x0t = y0t = None
@@ -578,11 +592,12 @@ def solve(
             x0t[:n] = torch.as_tensor(np.array(x0), dtype=dtype)
         if y0 is not None:
             y0t[:m] = torch.as_tensor(np.array(y0), dtype=dtype)
-        if mesh is not None:
-            # Every rank starts from rank 0's point (a warm start computed
-            # per rank, such as the fishnet's, may differ between them).
-            mesh.broadcast(x0t)
-            mesh.broadcast(y0t)
+        if pl is not None:
+            # Every rank starts from its slices of rank 0's point (a warm
+            # start computed per rank, such as the fishnet's, may differ
+            # between them).
+            x0t = pl.cut_x(mesh.broadcast(x0t))
+            y0t = pl.cut_y(mesh.broadcast(y0t))
 
     pb, st, t_arrays = _prepare(
         lambda: _device_arrays(arrays_of, dtype, dev, op_cache, layout,
@@ -593,20 +608,22 @@ def solve(
     if mesh is not None:  # rank 0's file decides
         will_resume = mesh.agree(will_resume and mesh.rank == 0, dev)
     if will_resume:
-        st = _resumed_state(checkpoint_path, pb, cfg, dtype, dev, mesh, st)
+        st = _resumed_state(checkpoint_path, pb, cfg, dtype, dev, pl, st)
     # Never run a chunk when the wall clock was spent by the time the
     # arrays reached the device (where the JAX package checks it).
     budget_spent = shard_mesh.clock_spent(t_arrays - start + time_used,
                                           cfg.time_limit, mesh, dev)
 
     history = [] if log_history else None
-    # Under a mesh every rank holds the same state; rank 0 writes it.
-    writes = checkpoint_path is not None and (mesh is None
-                                              or mesh.rank == 0)
 
     def probe(st):
-        if writes:
-            save_state(st, checkpoint_path)
+        if pl is not None:
+            shard_mesh.check_replicated(st, mesh)
+        if checkpoint_path is not None:
+            # Under a mesh every rank sends its slices; rank 0 writes.
+            full = st if pl is None else shard_mesh.gather_state(st, pl)
+            if mesh is None or mesh.rank == 0:
+                save_state(full, checkpoint_path)
         if history is None and not cfg.verbose:
             return read_ints(st.j, st.status)
         vals = read_ints(st.j, st.status, st.k, st.n_restarts)
@@ -669,7 +686,10 @@ def solve(
         # declare Solved.
         st = final_eval(st, pb, cfg)
 
-    x, y, obj = _extract(pb, st, use_prev=cfg.step_scheme == "halpern")
+    if pl is not None:
+        mesh.held = shard_mesh.vector_bytes(pl, st, pb)
+    x, y, obj = _extract(pb, st, use_prev=cfg.step_scheme == "halpern",
+                         pl=pl)
     vec = torch.cat([x[:n], y[:m], torch.stack([obj, st.primal_res,
                                                 st.dual_res, st.gap])]
                     ).cpu().numpy()

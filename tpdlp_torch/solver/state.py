@@ -6,7 +6,9 @@ adaptive stepsize denominator and the restart KKT errors are vector work
 instead of extra products: one K x and one K'y per iteration.  It holds all
 of the JAX state's fields, the certificate and Halpern slots included, so
 that checkpoints need no reshuffle.  Counters and the status are int32 0-d
-tensors.
+tensors.  Under a mesh each vector is this rank's slice of its space
+(shard/mesh.py: `_X_FIELDS`, `_Y_FIELDS`) and the scalars are the same on
+every rank.
 """
 
 from __future__ import annotations
