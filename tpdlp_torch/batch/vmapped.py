@@ -71,6 +71,7 @@ from tpdlp_torch.solver.solve import (
     default_dtype,
 )
 from tpdlp_torch.solver.state import PDHGState
+from tpdlp_torch.timer import host_read, span, until_read
 
 _RUNNING = int(Status.RUNNING)
 
@@ -223,40 +224,47 @@ def _shared_init(op, c, q, l, u, mask, seed: int, cfg: SolverConfig):
     Pock-Chambolle diagonals depend only on K, so scaling and the
     spectral-norm power iteration run once, on the first element's data,
     and the fleet shares op_s, d_row, d_col and eta; omega is per element."""
-    op_s, _, _, _, _, d_row, d_col = scale_problem(
-        op, c[0], q[0], l[0], u[0],
-        method=cfg.scaling, ruiz_iters=cfg.ruiz_iters,
-        ruiz_eps=cfg.ruiz_eps, pc_alpha=cfg.pock_chambolle_alpha,
-    )
-    if cfg.scaling != "none":
-        c_s, q_s, l_s, u_s = c * d_col, q * d_row, l / d_col, u / d_col
-    else:
-        c_s, q_s, l_s, u_s = c, q, l, u
-    pb = _batch_problem(op_s, c_s, q_s, l_s, u_s, mask, d_row, d_col,
-                        c, q, l, u, cfg)
-    eta0 = cfg.eta_safety / spectral_norm_estimate(op_s, seed,
-                                                    cfg.power_iters)
-    return pb, _batch_state(pb, eta0, _omega0(c_s, q_s))
+    with span("prep.scale"):
+        op_s, _, _, _, _, d_row, d_col = scale_problem(
+            op, c[0], q[0], l[0], u[0],
+            method=cfg.scaling, ruiz_iters=cfg.ruiz_iters,
+            ruiz_eps=cfg.ruiz_eps, pc_alpha=cfg.pock_chambolle_alpha,
+        )
+        if cfg.scaling != "none":
+            c_s, q_s, l_s, u_s = c * d_col, q * d_row, l / d_col, u / d_col
+        else:
+            c_s, q_s, l_s, u_s = c, q, l, u
+        pb = _batch_problem(op_s, c_s, q_s, l_s, u_s, mask, d_row, d_col,
+                            c, q, l, u, cfg)
+    with span("prep.power"):
+        eta0 = cfg.eta_safety / spectral_norm_estimate(op_s, seed,
+                                                        cfg.power_iters)
+    with span("prep.init"):
+        return pb, _batch_state(pb, eta0, _omega0(c_s, q_s))
 
 
 def _stack_init(op, c, q, l, u, mask, seed: int, cfg: SolverConfig):
     """A fleet over a stack of distinct operators (the JAX `_batch_init`
     and `_batch_init_band`): per-element scaling, power iteration (B
     seeds), eta and omega."""
-    op_s, c_s, q_s, l_s, u_s, d_row, d_col = scale_problem(
-        op, c, q, l, u, method=cfg.scaling, ruiz_iters=cfg.ruiz_iters,
-        ruiz_eps=cfg.ruiz_eps, pc_alpha=cfg.pock_chambolle_alpha,
-    )
-    pb = _batch_problem(op_s, c_s, q_s, l_s, u_s, mask, d_row, d_col,
-                        c, q, l, u, cfg)
-    b0 = element_vectors(pb.n, seed, c.shape[0], c.dtype, c.device)
-    eta0 = cfg.eta_safety / _spectral_norms(op_s, b0, cfg.power_iters)
-    return pb, _batch_state(pb, eta0, _omega0(c_s, q_s))
+    with span("prep.scale"):
+        op_s, c_s, q_s, l_s, u_s, d_row, d_col = scale_problem(
+            op, c, q, l, u, method=cfg.scaling, ruiz_iters=cfg.ruiz_iters,
+            ruiz_eps=cfg.ruiz_eps, pc_alpha=cfg.pock_chambolle_alpha,
+        )
+        pb = _batch_problem(op_s, c_s, q_s, l_s, u_s, mask, d_row, d_col,
+                            c, q, l, u, cfg)
+    with span("prep.power"):
+        b0 = element_vectors(pb.n, seed, c.shape[0], c.dtype, c.device)
+        eta0 = cfg.eta_safety / _spectral_norms(op_s, b0, cfg.power_iters)
+    with span("prep.init"):
+        return pb, _batch_state(pb, eta0, _omega0(c_s, q_s))
 
 
 def _read(*cols) -> np.ndarray:
     """One device-to-host copy of a few (B, 1) int32 columns: (B, k)."""
-    return torch.cat(cols, dim=1).cpu().numpy()
+    with host_read():
+        return torch.cat(cols, dim=1).cpu().numpy()
 
 
 def _steps(st, live, j_budget: int, n: int):
@@ -264,9 +272,10 @@ def _steps(st, live, j_budget: int, n: int):
     `status == RUNNING & j < j_budget` taken at its start.  Returns the
     state and the last iteration's mask."""
     mask = None
-    for _ in range(n):
-        mask = (st.status == _RUNNING) & (st.j < j_budget)
-        st = L._select(mask, live(st), st)
+    with span("steps"):
+        for _ in range(n):
+            mask = (st.status == _RUNNING) & (st.j < j_budget)
+            st = L._select(mask, live(st), st)
     L.launched["iterations"] += n
     return st, mask
 
@@ -289,8 +298,9 @@ def _chunk_element(st, pb, j_budget: int, cfg: SolverConfig, live, check):
         n = min(left, spend)
         st, mask = _steps(st, live, j_budget, n)
         if n == left:
-            fire = mask & (st.status == _RUNNING) & (st.t % T == 0)
-            st = L._select(fire, check(pb, cfg, st), st)
+            with span("check", st.x.device):
+                fire = mask & (st.status == _RUNNING) & (st.t % T == 0)
+                st = L._select(fire, check(pb, cfg, st), st)
             L.launched["restart_checks"] += 1
 
 
@@ -309,9 +319,10 @@ def _chunk_global(st, pb, j_budget: int, cfg: SolverConfig, live, check):
         if not running.any() or j[running].min() >= j_budget:
             return st
         st, _ = _steps(st, live, j_budget, T)
-        fire = ((st.t >= T) & (st.status == _RUNNING)
-                & (st.j < j_budget))
-        st = L._select(fire, check(pb, cfg, st), st)
+        with span("check", st.x.device):
+            fire = ((st.t >= T) & (st.status == _RUNNING)
+                    & (st.j < j_budget))
+            st = L._select(fire, check(pb, cfg, st), st)
         L.launched["restart_checks"] += 1
 
 
@@ -347,7 +358,8 @@ def _gather_results(st, pb, idx, cfg: SolverConfig, np_dtype):
         getattr(st, f)[sel] for f in ("status", "k", "n_restarts", "j",
                                       "primal_res", "dual_res", "gap")]
     flat = torch.cat([p.to(torch.float64) for p in parts], dim=1)
-    host = flat.cpu().numpy()
+    with host_read():
+        host = flat.cpu().numpy()
     n, m = pb.n, pb.m
     x_h = host[:, :n].astype(np_dtype)
     y_h = host[:, n:n + m].astype(np_dtype)
@@ -398,6 +410,9 @@ def solve_batch(
     on it, bit for bit.
     """
     start = time.perf_counter()
+    # Preprocessing's wall, its device work included: to the end of the
+    # first host read, which waits for it.
+    until_read("prep")
     cfg = config
     if restart_sync not in ("element", "global"):
         raise ValueError(f"unknown restart_sync: {restart_sync!r}")
@@ -444,24 +459,22 @@ def solve_batch(
             "padding) and 'auto' only"
         )
 
-    c, q, l, u, mask = (torch.as_tensor(a, device=dev)
-                        for a in _pad_vectors(problems, np_dtype))
-    if shared:
-        op0, *_ = build_device_operator(problems[0], dtype, matrix_format,
-                                        dev)
-        pbs, sts = _shared_init(op0, c, q, l, u, mask, seed, cfg)
-        del op0
-    elif matrix_format == "band":
-        stack = band_probe or band_stack(problems, dtype, m_max, n_max)
-        op = band_stack_op(stack, m_max, n_max, dev)
-        del stack, band_probe
-        pbs, sts = _stack_init(op, c, q, l, u, mask, seed, cfg)
-        del op
-    else:
-        op = StackedDenseOp.from_problems(problems, m_max, n_max, dtype,
-                                          dev)
-        pbs, sts = _stack_init(op, c, q, l, u, mask, seed, cfg)
-        del op
+    with span("prep.operator"):
+        c, q, l, u, mask = (torch.as_tensor(a, device=dev)
+                            for a in _pad_vectors(problems, np_dtype))
+        if shared:
+            op, *_ = build_device_operator(problems[0], dtype,
+                                           matrix_format, dev)
+        elif matrix_format == "band":
+            stack = band_probe or band_stack(problems, dtype, m_max, n_max)
+            op = band_stack_op(stack, m_max, n_max, dev)
+            del stack, band_probe
+        else:
+            op = StackedDenseOp.from_problems(problems, m_max, n_max, dtype,
+                                              dev)
+    init = _shared_init if shared else _stack_init
+    pbs, sts = init(op, c, q, l, u, mask, seed, cfg)
+    del op
 
     chunk = cfg.chunk_kkt_init
     chunk_fn = _chunk_global if restart_sync == "global" else _chunk_element
@@ -492,63 +505,65 @@ def solve_batch(
             and target <= len(statuses) // 2
             and last_chunk_wall >= _COMPACT_MIN_CHUNK_WALL
         ):
-            fin_idx = np.flatnonzero(~running)
-            new_fin = [i for i in fin_idx if orig[i] not in done]
-            if new_fin:
-                for i, vals in zip(new_fin, _gather_results(
-                        sts, pbs, new_fin, cfg, np_dtype)):
-                    done[int(orig[i])] = vals
-            run_idx = np.flatnonzero(running)
-            pad = fin_idx[: target - run_idx.size]  # finished: no-op slots
-            sel_np = np.concatenate([run_idx, pad])
-            sel = torch.as_tensor(sel_np.astype(np.int64), device=dev)
-            sts = _take_state(sts, sel)
-            pbs = _take_problem(pbs, sel)
-            live = L.make_live(pbs, cfg)
-            orig = orig[sel_np]
-            js = js[sel_np]
-            running = running[sel_np]
+            with span("compact"):
+                fin_idx = np.flatnonzero(~running)
+                new_fin = [i for i in fin_idx if orig[i] not in done]
+                if new_fin:
+                    for i, vals in zip(new_fin, _gather_results(
+                            sts, pbs, new_fin, cfg, np_dtype)):
+                        done[int(orig[i])] = vals
+                run_idx = np.flatnonzero(running)
+                pad = fin_idx[: target - run_idx.size]  # no-op slots
+                sel_np = np.concatenate([run_idx, pad])
+                sel = torch.as_tensor(sel_np.astype(np.int64), device=dev)
+                sts = _take_state(sts, sel)
+                pbs = _take_problem(pbs, sel)
+                live = L.make_live(pbs, cfg)
+                orig = orig[sel_np]
+                js = js[sel_np]
+                running = running[sel_np]
 
         budget = min(cfg.max_kkt, int(js[running].min()) + chunk)
         t_dispatch = time.perf_counter()
         sts = chunk_fn(sts, pbs, budget, cfg, live, check)
         chunk = min(chunk * 2, cfg.chunk_kkt_max)
 
-    if not timed_out:
-        # Budget-exhausted elements get the reference's final residual
-        # evaluation (it may still declare Solved); on a timeout they stay
-        # RUNNING and map to TIME_LIMIT below.
-        sts = L._select(sts.status == _RUNNING, L.final_eval(sts, pbs, cfg),
-                        sts)
-    elapsed = time.perf_counter() - start
+    with span("finish"):
+        if not timed_out:
+            # Budget-exhausted elements get the reference's final residual
+            # evaluation (it may still declare Solved); on a timeout they
+            # stay RUNNING and map to TIME_LIMIT below.
+            sts = L._select(sts.status == _RUNNING,
+                            L.final_eval(sts, pbs, cfg), sts)
+        elapsed = time.perf_counter() - start
 
-    rest = [i for i in range(len(orig)) if int(orig[i]) not in done]
-    if rest:
-        for i, vals in zip(rest, _gather_results(sts, pbs, rest, cfg,
-                                                 np_dtype)):
-            done[int(orig[i])] = vals
+        rest = [i for i in range(len(orig)) if int(orig[i]) not in done]
+        if rest:
+            for i, vals in zip(rest, _gather_results(sts, pbs, rest, cfg,
+                                                     np_dtype)):
+                done[int(orig[i])] = vals
 
-    results = []
-    for gi, p in enumerate(problems):
-        (x_row, y_row, c0_row, status_v, k_v, n_v, j_v, rp_v, rd_v,
-         gap_v) = done[gi]
-        status = Status(int(status_v))
-        if timed_out and status == Status.RUNNING:
-            status = Status.TIME_LIMIT
-        x = x_row[: p.n]
-        results.append(SolveResult(
-            x=np.array(x),
-            y=np.array(y_row[: p.m]),
-            objective=float(c0_row[: p.n] @ x) + p.obj_offset,
-            obj_offset=p.obj_offset,
-            objective_sense=p.objsense,
-            iterations=int(k_v),
-            restarts=int(n_v),
-            kkt_passes=int(j_v),
-            status=status,
-            solve_time=elapsed,
-            primal_res=float(rp_v),
-            dual_res=float(rd_v),
-            gap=float(gap_v),
-        ))
-    return results
+        results = []
+        for gi, p in enumerate(problems):
+            (x_row, y_row, c0_row, status_v, k_v, n_v, j_v, rp_v, rd_v,
+             gap_v) = done[gi]
+            status = Status(int(status_v))
+            if timed_out and status == Status.RUNNING:
+                status = Status.TIME_LIMIT
+            x = x_row[: p.n]
+            results.append(SolveResult(
+                x=np.array(x),
+                y=np.array(y_row[: p.m]),
+                objective=float(c0_row[: p.n] @ x) + p.obj_offset,
+                obj_offset=p.obj_offset,
+                objective_sense=p.objsense,
+                iterations=int(k_v),
+                restarts=int(n_v),
+                kkt_passes=int(j_v),
+                status=status,
+                solve_time=elapsed,
+                primal_res=float(rp_v),
+                dual_res=float(rd_v),
+                gap=float(gap_v),
+            ))
+        return results

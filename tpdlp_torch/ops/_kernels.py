@@ -36,6 +36,8 @@ from typing import NamedTuple
 
 import torch
 
+from tpdlp_torch.timer import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdlp_torch"
 SOURCES = ("dense_matvec.cu", "band_matvec.cu", "csr_matvec.cu")
@@ -125,7 +127,8 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with span("library"):
+                lib = ctypes.CDLL(str(build()))
             args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_void_p]

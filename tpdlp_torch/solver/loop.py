@@ -50,14 +50,12 @@ from tpdlp_torch.solver.infeasibility import (
 )
 from tpdlp_torch.solver.reduce import reduce, staged
 from tpdlp_torch.solver.state import PDHGState
+# `launched`: the port's counter registry (timer.py says what it holds),
+# read by this name.
+from tpdlp_torch.timer import host_read, launched, span
 
 _RUNNING = int(Status.RUNNING)
 _FIELDS = tuple(f.name for f in dataclasses.fields(PDHGState))
-
-#: Iterations and restart checks the runners have issued to the device,
-#: masked ones included (each issues its K products whether or not it
-#: counts in k).  Like `ops._kernels.launches`, for launch accounting.
-launched = {"iterations": 0, "restart_checks": 0}
 
 
 def reset_launched() -> None:
@@ -107,10 +105,15 @@ def _status_code(code, like):
 def _select(mask, new: PDHGState, old: PDHGState) -> PDHGState:
     """`new` where the 0-d bool `mask` holds, else `old`, field by field;
     a field that `new` shares with `old` needs no select."""
-    out = {}
+    out, selects = {}, 0
     for name in _FIELDS:
         a, b = getattr(new, name), getattr(old, name)
-        out[name] = a if a is b else torch.where(mask, a, b)
+        if a is b:
+            out[name] = a
+        else:
+            out[name] = torch.where(mask, a, b)
+            selects += 1
+    launched["selects"] += selects
     return PDHGState(**out)
 
 
@@ -490,8 +493,9 @@ def blocked_allowed(cfg: SolverConfig) -> bool:
 
 
 def read_ints(*scalars) -> list[int]:
-    """One device-to-host copy of a few int32 scalars."""
-    return torch.stack(scalars).tolist()
+    """One device-to-host copy of a few int32 scalars (a host read)."""
+    with host_read():
+        return torch.stack(scalars).tolist()
 
 
 def _masked_block(st: PDHGState, pb, cfg: SolverConfig, live, j_budget: int,
@@ -500,13 +504,15 @@ def _masked_block(st: PDHGState, pb, cfg: SolverConfig, live, j_budget: int,
     left, the iterations left in the cycle), the gated restart check.  The
     mask is monotone: once an iteration is masked, every later one is
     too."""
-    for _ in range(n):
-        mask = (st.status == _RUNNING) & (st.j < j_budget)
-        st = _select(mask, live(st), st)
+    with span("steps"):
+        for _ in range(n):
+            mask = (st.status == _RUNNING) & (st.j < j_budget)
+            st = _select(mask, live(st), st)
     launched["iterations"] += n
     if n == left:
-        fire = mask & (st.status == _RUNNING)
-        st = _select(fire, _restart_for(cfg)(pb, cfg, st), st)
+        with span("check", st.x.device):
+            fire = mask & (st.status == _RUNNING)
+            st = _select(fire, _restart_for(cfg)(pb, cfg, st), st)
         launched["restart_checks"] += 1
     return st
 
@@ -558,11 +564,13 @@ def run_chunk_blocked_impl(
         status, j = read_ints(st.status, st.j)
         if status != _RUNNING or j >= j_budget:
             return st
-        for _ in range(T):
-            st = live(st)
+        with span("steps"):
+            for _ in range(T):
+                st = live(st)
         # t is a multiple of T here by construction: the boundary check
         # always fires.
-        st = check(pb, cfg, st)
+        with span("check", st.x.device):
+            st = check(pb, cfg, st)
         launched["iterations"] += T
         launched["restart_checks"] += 1
 

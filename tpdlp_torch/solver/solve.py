@@ -62,6 +62,7 @@ from tpdlp_torch.solver.loop import final_eval, read_ints, run_chunk
 from tpdlp_torch.solver.power_iteration import spectral_norm_estimate
 from tpdlp_torch.solver.reduce import reduce
 from tpdlp_torch.solver.state import init_state
+from tpdlp_torch.timer import end_pending, host_read, span, until_read
 
 
 @dataclasses.dataclass
@@ -288,18 +289,22 @@ def _prepare(arrays, ineq_mask, seed, x0, y0, om0, cfg: SolverConfig):
     The unscaled operator lives only in this frame (and in `op_cache`), so
     it is freed once scaled, before the power iteration builds K': the
     device holds at most two copies of K at any time."""
-    op, c, q, l, u = arrays()
+    with span("prep.operator"):
+        op, c, q, l, u = arrays()
     t_arrays = time.perf_counter()
-    pb = build_device_problem(op, c, q, l, u, ineq_mask, cfg)
+    with span("prep.scale"):
+        pb = build_device_problem(op, c, q, l, u, ineq_mask, cfg)
     del op
-    eta0, omega0 = eta_omega_of(pb, seed, cfg, om0)
-    # Warm starts arrive in the original frame; the loop iterates in the
-    # scaled one (x = d_col * x_s).
-    if x0 is not None:
-        x0 = x0 / pb.d_col
-    if y0 is not None:
-        y0 = y0 / pb.d_row
-    return pb, init_state(pb, eta0, omega0, x0, y0), t_arrays
+    with span("prep.power"):
+        eta0, omega0 = eta_omega_of(pb, seed, cfg, om0)
+    with span("prep.init"):
+        # Warm starts arrive in the original frame; the loop iterates in
+        # the scaled one (x = d_col * x_s).
+        if x0 is not None:
+            x0 = x0 / pb.d_col
+        if y0 is not None:
+            y0 = y0 / pb.d_row
+        return pb, init_state(pb, eta0, omega0, x0, y0), t_arrays
 
 
 def _resumed_state(path, pb, cfg: SolverConfig, dtype, dev, pl, st):
@@ -366,7 +371,7 @@ def run_stage(stages: list, what: str, fn, *args, **kwargs):
         "k": r.iterations, "n": r.restarts, "j": r.kkt_passes,
         "wall_s": time.perf_counter() - t0,
         "launches": {k: v - k0[k] for k, v in _kernels.launches.items()},
-        "issued": {k: v - i0[k] for k, v in loop.launched.items()},
+        "issued": {k: v - i0.get(k, 0) for k, v in loop.launched.items()},
     })
     return r
 
@@ -574,6 +579,9 @@ def solve(
                     log_history=log_history,
                 )
     dtype = _as_dtype(dtype)
+    # Preprocessing's wall, its device work included: to the end of the
+    # first host read, which waits for it.
+    until_read("prep")
 
     m, n = problem.m, problem.n
     # Under a mesh every vector below is this rank's slice of its padded
@@ -627,8 +635,9 @@ def solve(
         if history is None and not cfg.verbose:
             return read_ints(st.j, st.status)
         vals = read_ints(st.j, st.status, st.k, st.n_restarts)
-        f = torch.stack([st.prim_obj, st.primal_res, st.dual_res, st.gap,
-                         st.eta, st.omega]).tolist()
+        with host_read():
+            f = torch.stack([st.prim_obj, st.primal_res, st.dual_res,
+                             st.gap, st.eta, st.omega]).tolist()
         rec = {
             "k": vals[2], "j": vals[0], "restarts": vals[3],
             "prim_obj": f[0], "primal_res": f[1], "dual_res": f[2],
@@ -678,38 +687,44 @@ def solve(
         aligned = True
         j_done, status_now = probe(st)
 
-    status = Status(status_now)
-    if timed_out and status == Status.RUNNING:
-        status = Status.TIME_LIMIT
-    elif status == Status.RUNNING:
-        # KKT budget exhausted: one last residual evaluation may still
-        # declare Solved.
-        st = final_eval(st, pb, cfg)
+    # A solve whose clock was spent before its first chunk reads the
+    # device first here.
+    end_pending()
+    with span("finish"):
+        status = Status(status_now)
+        if timed_out and status == Status.RUNNING:
+            status = Status.TIME_LIMIT
+        elif status == Status.RUNNING:
+            # KKT budget exhausted: one last residual evaluation may still
+            # declare Solved.
+            st = final_eval(st, pb, cfg)
 
-    if pl is not None:
-        mesh.held = shard_mesh.vector_bytes(pl, st, pb)
-    x, y, obj = _extract(pb, st, use_prev=cfg.step_scheme == "halpern",
-                         pl=pl)
-    vec = torch.cat([x[:n], y[:m], torch.stack([obj, st.primal_res,
-                                                st.dual_res, st.gap])]
-                    ).cpu().numpy()
-    j_v, st_v, k_v, n_v = read_ints(st.j, st.status, st.k, st.n_restarts)
-    if st_v != int(Status.RUNNING):
-        status = Status(st_v)
-    obj_v, rp_v, rd_v, gap_v = (float(v) for v in vec[n + m:])
-    return SolveResult(
-        x=vec[:n].copy(),
-        y=vec[n:n + m].copy(),
-        objective=obj_v + problem.obj_offset,
-        obj_offset=problem.obj_offset,
-        objective_sense=problem.objsense,
-        iterations=k_v,
-        restarts=n_v,
-        kkt_passes=j_v,
-        status=status,
-        solve_time=time.perf_counter() - start + time_used,
-        primal_res=rp_v,
-        dual_res=rd_v,
-        gap=gap_v,
-        history=history,
-    )
+        if pl is not None:
+            mesh.held = shard_mesh.vector_bytes(pl, st, pb)
+        x, y, obj = _extract(pb, st, use_prev=cfg.step_scheme == "halpern",
+                             pl=pl)
+        vec = torch.cat([x[:n], y[:m], torch.stack([obj, st.primal_res,
+                                                    st.dual_res, st.gap])])
+        with host_read():
+            vec = vec.cpu().numpy()
+        j_v, st_v, k_v, n_v = read_ints(st.j, st.status, st.k,
+                                        st.n_restarts)
+        if st_v != int(Status.RUNNING):
+            status = Status(st_v)
+        obj_v, rp_v, rd_v, gap_v = (float(v) for v in vec[n + m:])
+        return SolveResult(
+            x=vec[:n].copy(),
+            y=vec[n:n + m].copy(),
+            objective=obj_v + problem.obj_offset,
+            obj_offset=problem.obj_offset,
+            objective_sense=problem.objsense,
+            iterations=k_v,
+            restarts=n_v,
+            kkt_passes=j_v,
+            status=status,
+            solve_time=time.perf_counter() - start + time_used,
+            primal_res=rp_v,
+            dual_res=rd_v,
+            gap=gap_v,
+            history=history,
+        )
