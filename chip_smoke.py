@@ -42,9 +42,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              `index_select`, beside the same reads in order: the card's
              rate for the gather.
              batch_kernels: each kernel's batch axis at the fleets' shapes
-             (and mittelmann-s x 8 on the shared-K kernel, banded 100k x 8
-             on the CSR kernel's ring), every element
-             bit for bit a single launch, the same times and yardsticks.
+             (and mittelmann-s x 8 on the shared-K kernel, mittelmann-l x
+             64 on its cluster route, banded 100k x 8 on the CSR kernel's
+             ring), every element bit for bit a single launch, the same
+             times and yardsticks, each launch's route counted; then the
+             shared-K kernel's long-row routes side by side at batches 8
+             to 64 (the plan's thresholds), their outputs bit-identical.
 4. solve   — the dense path: mittelmann-s and mittelmann-l at full size in
              fp32, tol 1e-4, Ruiz + adaptive steps + primal-weight update
              (the settings of the JAX package's bench runner); one warm-up
@@ -173,10 +176,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              LPs through the stacked K1; the banded 8192 fleet (8 seeds)
              through "auto", which must choose the stacked band layout
              (K2, no K1 launch); mittelmann-l x 8 through "sparse" (the
-             batched CSR kernel), replayed with the same x bits.  Each
-             fleet's launches equal its formula: two per issued iteration
-             and restart check, the initial state's two, the power
-             iteration's (single launches for a shared K).  The afiro
+             batched CSR kernel), replayed with the same x bits;
+             mittelmann-l x 64 dense (the benchmark's fleet: the shared-K
+             kernel's cluster route).  Each fleet's launches equal its
+             formula: two per issued iteration and restart check, the
+             initial state's two, the power iteration's (single launches
+             for a shared K); the cluster route's, every batched launch of
+             a fleet that never compacts.  The afiro
              fleet is solved once more under torch.profiler: the device's
              busy share, activities and busy time per iteration.
 19. fishnet — spectral_cast on mittelmann-s (the CLI's wiring: the scaled
@@ -352,6 +358,14 @@ RAGGED_B = 37
 #: shared-K fleet at a batch of 8: the shared-K kernel with rows streamed
 #: in chunks, where K (40 MB) is read once for the 8 elements.
 SHARED_MS_B = 8
+#: ... and mittelmann-l x FLEET_DENSE_L over its dense K, the benchmark's
+#: fleet (`mittelmann-l.fleet64`): the shared-K kernel's cluster route,
+#: fp32 rows of 80,000 and 32,000 bytes.
+FLEET_DENSE_L = 64
+#: The batches at which the shared-K kernel's long-row routes run side by
+#: side on mittelmann-s's and mittelmann-l's K and K' (shared_routes):
+#: the plan's thresholds stand on these times.
+ROUTE_BATCHES = (8, 9, 16, 24, 32, 33, 48, 64)
 #: The shard phase: the banded 100k instance on four ranks for this many
 #: KKT passes (the per-rank memory is what it shows); ranks share the card
 #: under gloo (NCCL refuses two ranks on one card), and a 1x1 mesh drives
@@ -2058,20 +2072,26 @@ def _batch_csr_side(mat, B):
 
 def batch_kernels_phase(dev, rates, fleets, p_s, p_band):
     """Each kernel's batch axis at this slice's shapes (the fleets' K and
-    K', mittelmann-s x SHARED_MS_B and banded 100k x FLEET_SPARSE, the CSR
-    batch axis on its ring route): against its twin (error,
+    K', mittelmann-s x SHARED_MS_B, mittelmann-l x FLEET_DENSE_L and
+    banded 100k x FLEET_SPARSE, the CSR batch axis on its ring route):
+    against its twin (error,
     bit-identical repeats), every element bit for bit a single launch on
     it, cold and loop times by CUDA events beside the twin and the one
     PyTorch call that computes the same function (torch.bmm for a stack,
     K @ X' for a shared dense or CSR K), and the bound (a shared K's bytes
     counted once).  A shared dense K's row names its plan; the
     mittelmann-s rows also time one single launch (`single_ms`): reading
-    K once, the batch should take less than two."""
+    K once, the batch should take less than two.  Each row counts the
+    launches of one call (`launched`): the shared-K kernel's cluster
+    route moves `dense_matvec_shared_long` exactly where its plan takes
+    it.  Then shared_routes on mittelmann-s's and mittelmann-l's dense K
+    and K'."""
     from tpdlp_torch.batch.stacked import (
         StackedDenseOp,
         band_stack,
         band_stack_op,
     )
+    from tpdlp_torch.ops import _kernels as K
     from tpdlp_torch.ops.exact_dense import ExactDenseOp
     from tpdlp_torch.ops.sparse import SparseOp
 
@@ -2087,16 +2107,20 @@ def batch_kernels_phase(dev, rates, fleets, p_s, p_band):
                                                 device=dev))
         return op.mat, op.bwd[:, : op.m]
 
-    cases = []
+    cases, long_rows = [], {}
     for label, p, B, dtype in (
             ("afiro-class shared", afiro, FLEET_AFIRO, torch.float32),
             ("afiro-class shared, ragged", afiro, RAGGED_B, torch.float32),
             ("deg2-class shared", deg2, FLEET_DEG2, torch.float32),
             ("deg2-class shared", deg2, FLEET_DEG2, torch.float64),
-            ("mittelmann-s shared", p_s, SHARED_MS_B, torch.float32)):
+            ("mittelmann-s shared", p_s, SHARED_MS_B, torch.float32),
+            ("mittelmann-l dense shared", p_l, FLEET_DENSE_L,
+             torch.float32)):
         fwd, bwd = dense_shared(p, dtype)
         cases.append((label, B, dtype, _batch_dense_side(fwd, B),
                       _batch_dense_side(bwd, B)))
+        if label.startswith("mittelmann"):
+            long_rows[f"{p.name} K"], long_rows[f"{p.name} K'"] = fwd, bwd
     m, n = max(q.m for q in distinct), max(q.n for q in distinct)
     st = StackedDenseOp.from_problems(distinct, m, n, torch.float32, dev)
     cases.append(("deg2-shaped stack", len(distinct), torch.float32,
@@ -2122,7 +2146,10 @@ def batch_kernels_phase(dev, rates, fleets, p_s, p_band):
         for side, c in zip(("K", "K'"), sides):
             X = torch.randn((B, c["cols"]), generator=gen, dtype=dtype,
                             device=dev)
+            before = dict(K.launches)
             Y = c["batch"](X)
+            launched = {k: v - before[k] for k, v in K.launches.items()
+                        if v != before[k]}
             Y2 = c["batch"](X)
             plain = c["plain"](X)
             # Each single launch gets its element's x as a vector of its
@@ -2143,6 +2170,11 @@ def batch_kernels_phase(dev, rates, fleets, p_s, p_band):
                 bad = int((Y != singles).any(dim=1).nonzero()[0])
                 raise AssertionError(f"{name} {label} {side}: element {bad}"
                                      " differs from its single launch")
+            cluster = c.get("plan") and c["plan"].get("cluster", 1) > 1
+            if (launched.get(name) != 1 or launched.get(
+                    "dense_matvec_shared_long", 0) != int(bool(cluster))):
+                raise AssertionError(f"{name} {label} {side}: launched "
+                                     f"{launched}, plan {c.get('plan')}")
             bound, bound_by = _bound(c["bytes"], c["flops"], rates, dtype)
             lib = c["library"](X)
             cold = cold_samples(lambda: c["batch"](X), flush)
@@ -2162,7 +2194,7 @@ def batch_kernels_phase(dev, rates, fleets, p_s, p_band):
                 "max_rel_err": rel, "max_abs_err": float(
                     (Y - plain).abs().max()), "tol": tol,
                 "per_element_bit_identical": True,
-                "last_element": B - 1,
+                "last_element": B - 1, "launched": launched,
             }
             if "nnz" in c:
                 row["nnz"] = c["nnz"]
@@ -2192,9 +2224,53 @@ def batch_kernels_phase(dev, rates, fleets, p_s, p_band):
         ra.update(loop)
         rb.update(loop)
         del pair, a, b, xa, xb, la, lb
-    del cases, st, bop, sop, bsop, flush
+    del cases, st, bop, sop, bsop
+    shared_routes(dev, long_rows, flush, gen, rates)
+    del long_rows, flush
     torch.cuda.empty_cache()
     return rows
+
+
+def shared_routes(dev, mats, flush, gen, rates):
+    """The shared-K kernel's routes for rows longer than 4 KB side by side
+    at ROUTE_BATCHES on each fp32 K of `mats` (name: matrix): the chunked
+    route and the cluster route at tiles of 32 and 64 elements, each
+    launched by its own plan through the wrapper's launcher.  Every
+    route's output equals the others' bit for bit; the row gives each
+    route's cold median ms, its share of the fp32 bound, the fastest and
+    the route that shared_plan takes."""
+    from tpdlp_torch.ops import _kernels as K
+
+    for label, M in mats.items():
+        rows, cols = M.shape
+        for B in ROUTE_BATCHES:
+            X = torch.randn((B, cols), generator=gen, device=dev)
+            plans = {"chunk": K._chunk_plan(rows, B),
+                     "cluster32": K._cluster_plan(rows, B, 32),
+                     "cluster64": K._cluster_plan(rows, B, 64)}
+            chosen = K.shared_plan(rows, cols, B, 4, K._sm_count(dev))
+            Ys, ms = {}, {}
+            for route, plan in plans.items():
+                Y = torch.empty((B, rows), device=dev)
+                launch = (lambda Y=Y, plan=plan: K._launch_dense_batch(
+                    M, X, Y, M.stride(0), 0, plan))
+                launch()
+                Ys[route] = Y
+                ms[route] = time_launches(launch, flush)
+            first = Ys["chunk"]
+            if not all(torch.equal(first, Y) for Y in Ys.values()):
+                raise AssertionError(f"shared_routes {label} x {B}: the "
+                                     "routes' bits differ")
+            bound, _ = _bound(rows * cols * 4 + B * (rows + cols) * 4,
+                              2 * B * rows * cols, rates, torch.float32)
+            takes = ("chunk" if chosen.cluster == 1
+                     else f"cluster{chosen.EB}")
+            emit("shared_routes", matrix=label, shape=[rows, cols], batch=B,
+                 ms=ms, bound_ms=bound,
+                 bound_share={k: bound / v for k, v in ms.items()},
+                 fastest=min(ms, key=ms.get), plan_takes=takes,
+                 over_fastest=ms[takes] / min(ms.values()))
+            del X, Ys
 
 
 def fleet_residuals(problems, results):
@@ -2241,13 +2317,15 @@ def fleet_residuals(problems, results):
 
 
 def _fleet_run(dev, name, problems, cfg, kernel, single_kernel=None,
-               dtype=torch.float32, check=True, **kw):
+               dtype=torch.float32, check=True, route=None, **kw):
     """One counted solve_batch (launch counts and issued iterations and
     restart checks set to 0 just before it): every element Solved and
     held to 10*tol by fleet_residuals (`check`), `kernel` launched its
     formula's count (two per issued iteration and restart check, the
     initial state's two, and a stack's batched power iteration), a shared
-    K's power iteration in `single_kernel`, nothing else launched.
+    K's power iteration in `single_kernel`, nothing else launched but
+    `route`, the counter of a route of `kernel`: every one of its batched
+    launches where the fleet never compacted, else at least one.
     Returns (results, row)."""
     from tpdlp_torch import Status, solve_batch
     from tpdlp_torch.ops import _kernels as K
@@ -2266,6 +2344,11 @@ def _fleet_run(dev, name, problems, cfg, kernel, single_kernel=None,
               + (0 if single_kernel else power)}
     if single_kernel:
         expect[single_kernel] = power
+    compacted = issued.get("compact_n", 0) > 0
+    if route and not compacted:
+        expect[route] = expect[kernel]
+    elif route:
+        expect[route] = min(max(launches[route], 1), expect[kernel])
     statuses = {}
     for r in rs:
         statuses[r.status_string] = statuses.get(r.status_string, 0) + 1
@@ -2279,6 +2362,7 @@ def _fleet_run(dev, name, problems, cfg, kernel, single_kernel=None,
         "launches": launches, "launches_expected": expect,
         "iterations_issued": issued["iterations"],
         "restart_checks_issued": issued["restart_checks"],
+        "compacted": compacted,
         **{k: v for k, v in kw.items() if isinstance(v, (str, bool))},
     }
     if check:
@@ -2411,7 +2495,15 @@ def fleet_phase(dev, fleets):
          bit_identical=replay)
     if not replay or any(r.status != Status.SOLVED for r in rs2):
         raise AssertionError("mittelmann-l sparse fleet: the replay differs")
+    del rs1, rs2
+    _, dense_l = _fleet_run(
+        dev, "mittelmann-l dense", perturbed_fleet(
+            fleets["mittelmann-l"], FLEET_DENSE_L, rel=0.05, seed=0), cfg,
+        "dense_matvec_batch", "dense_matvec", route="dense_matvec_shared_long",
+        matrix_format="dense", **sync)
     return {"dense_matvec": afiro["launches"]["dense_matvec_batch"],
+            "dense_matvec_shared_long":
+                dense_l["launches"]["dense_matvec_shared_long"],
             "dense_matvec_stack": distinct["launches"]["dense_matvec_batch"],
             "band_matvec": band["launches"]["band_matvec_batch"],
             "csr_matvec": sparse["launches"]["csr_matvec_batch"]}
@@ -3043,7 +3135,8 @@ def _summary(out):
 #: Each batched kernel's summary entry: its name, the kernel whose rows
 #: it reads, the case of the fleet that is its main path (afiro-class x
 #: 10,000 over a shared K; the 16 distinct deg2-shaped LPs; the banded 8192
-#: stack; mittelmann-l x 8), which rows it covers, its launches' key in
+#: stack; mittelmann-l x 8; the shared-K kernel's cluster route at
+#: mittelmann-l x 64), which rows it covers, its launches' key in
 #: fleet_phase's counts, and its source and TPU kernel.
 _BATCH_HEADS = {
     "dense_matvec_batch": (
@@ -3058,13 +3151,18 @@ _BATCH_HEADS = {
     "csr_matvec_batch": (
         "csr_matvec", "mittelmann-l shared K", "", "csr_matvec",
         "tpdlp_torch/csrc/csr_matvec.cu", "tpdlp/ops/sparse.py:65"),
+    "dense_matvec_shared_long": (
+        "dense_matvec", "mittelmann-l dense shared K", "mittelmann-l dense",
+        "dense_matvec_shared_long", "tpdlp_torch/csrc/dense_matvec.cu",
+        "tpdlp/ops/pallas_dense.py:77"),
 }
 
 
 def _batch_entries(rows, launches):
-    """The summary entries of the three kernels' batch axis (K1's twice: a
-    shared K and a stack): launches in their fleets, the head case's times
-    and bound, the largest fp32 error over the entry's batched cases."""
+    """The summary entries of the three kernels' batch axis (K1's three
+    times: a shared K, its cluster route and a stack): launches in their
+    fleets, the head case's times and bound, the largest fp32 error over
+    the entry's batched cases."""
     out = []
     for name, (kernel, case, cover, key, source,
                replaces) in _BATCH_HEADS.items():
@@ -3102,6 +3200,13 @@ _DENSE_BATCH_NOTES = {
         "of K rows x elements, units of 4 x 4 outputs with G lanes each; "
         "rows of at most 4 KB whole in one stage, longer rows in 2 KB "
         "chunks through a two-stage ring"),
+    "mittelmann-l dense": (
+        "a shared K's cluster route (fp32 rows over 4 KB where the chunked "
+        "route would read K again for 60 MB or more): "
+        "dense_matvec_shared_kernel_long, clusters of 4 blocks "
+        "a tile of 3072 outputs, block q partials 8q..8q+7 of each, lanes "
+        "of 12 x 8 partials fed from registers, the partials' tree through "
+        "distributed shared memory; K enters the SMs once a launch"),
     "stack": (
         "a stack (stride != 0): dense_matvec_stack_kernel, a block a tile "
         "of one element's rows (about four blocks an SM, one wave), X[b] "

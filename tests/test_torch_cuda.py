@@ -801,6 +801,69 @@ def test_shared_batch_kernel_equals_single_launches_on_card(card, dtype,
                                _bits(torch.zeros_like(Y[:, zero])))
 
 
+#: The shared-K kernel at mittelmann-l's K (8000 x 20000) and K', fp32, on
+#: the cluster route at B = 64 and a ragged 37, the chunked route at B = 1;
+#: a long-row fp64 K (the chunked route at any batch); X a view at an odd
+#: row stride and one an element into its buffer (loaded by element); the
+#: last vector partial by 1, 2 (at mittelmann-s's size x 24 and 33, on
+#: the cluster route) and 3 (odd-stride) elements.
+CLUSTER_CASES = {
+    "K-64": (8000, 20000, 64, torch.float32, "plain"),
+    "Kt-64": (20000, 8000, 64, torch.float32, "plain"),
+    "K-37": (8000, 20000, 37, torch.float32, "plain"),
+    "Kt-37": (20000, 8000, 37, torch.float32, "plain"),
+    "K-1": (8000, 20000, 1, torch.float32, "plain"),
+    "Kt-1": (20000, 8000, 1, torch.float32, "plain"),
+    "fp64-64": (2000, 5003, 64, torch.float64, "plain"),
+    "odd-stride": (2001, 5003, 64, torch.float32, "stride"),
+    "offset": (8000, 20000, 16, torch.float32, "offset"),
+    "tail-1": (2000, 5001, 24, torch.float32, "plain"),
+    "tail-2": (2000, 5002, 33, torch.float32, "stride"),
+}
+
+
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_shared_batch_cluster_route_equals_single_launches_on_card(card,
+                                                                   case):
+    """The shared-K kernel where the plan takes the cluster route (fp32
+    rows longer than 4 KB, where the chunked route would read K again for
+    _LONG_MIN_REREAD bytes or more) and beside it: every element
+    bit for bit a single launch, repeats bit-identical, each element
+    within tolerance of the plain twin, one launch a call, and the route
+    counter moved by one exactly where the plan's cluster route runs.  K
+    holds NaN in its row padding."""
+    rows, cols, B, dtype, xkind = CLUSTER_CASES[case]
+    gen = torch.Generator(device=card)
+    gen.manual_seed(17)
+    M = _nan_padded(rows, cols, gen, dtype, card)
+    if xkind == "stride":
+        X = torch.randn((B, cols + 5), generator=gen, dtype=dtype,
+                        device=card)[:, :cols]
+    elif xkind == "offset":
+        X = torch.randn((B * cols + 1,), generator=gen, dtype=dtype,
+                        device=card)[1:].view(B, cols)
+        assert X.data_ptr() % 16
+    else:
+        X = torch.randn((B, cols), generator=gen, dtype=dtype, device=card)
+    plan = _kernels.shared_plan(rows, cols, B, M.element_size(),
+                                _kernels._sm_count(card))
+    assert (plan.cluster > 1) == (dtype == torch.float32 and B > 8)
+    before = dict(_kernels.launches)
+    Y = _kernels.dense_matvec_batch(M, X)
+    moved = {k: v - before[k] for k, v in _kernels.launches.items()
+             if v != before[k]}
+    assert moved == ({"dense_matvec_batch": 1, "dense_matvec_shared_long": 1}
+                     if plan.cluster > 1 else {"dense_matvec_batch": 1})
+    assert torch.equal(_bits(Y), _bits(_kernels.dense_matvec_batch(M, X)))
+    assert bool(torch.isfinite(Y).all())
+    for b in range(B):
+        ref = _kernels.dense_matvec_batch_plain(M, X[b:b + 1])
+        rel = float(((Y[b:b + 1] - ref).abs() / (1 + ref.abs())).max())
+        assert rel < _tol(cols, dtype), (b, rel)
+    singles = torch.stack([dense_matvec(M, X[b].clone()) for b in range(B)])
+    assert torch.equal(_bits(Y), _bits(singles))
+
+
 def _nan_padded_stack(B, rows, cols, gen, dtype, card):
     """A (B, rows, cols) view of a stack whose row stride (cols rounded up
     to 4, plus 4) holds NaN past cols, its matrices at one stride."""

@@ -40,7 +40,7 @@
 // the JAX package vmaps ExactDenseOp.mv/rmv and pallas_call's batching rule
 // runs K1 over a batch grid axis).  One launch computes Y[b] = M_b X[b] for
 // b < batch, with M_b = M + b * stride_m, X[b] = x + b * ldx and
-// Y[b] = y + b * ldy, in one of two kernels picked by stride_m alone.
+// Y[b] = y + b * ldy: stride_m picks the stack kernel or a shared K's.
 //
 // A stack of distinct K (stride_m != 0) takes dense_matvec_stack_kernel
 // below, built for many small distinct matrices (a distinct fleet: 16 x
@@ -67,51 +67,85 @@
 //   vector by fma, then the butterfly 16, 8, 4, 2, 1.  So element b equals
 //   a single launch on b, bit for bit.
 //
-// One K shared by the fleet (stride_m == 0) takes dense_matvec_shared_kernel
-// below, which reads K once for a tile of right-hand sides.
+// One K shared by the fleet (stride_m == 0) reads K once for a tile of
+// right-hand sides, in one of two kernels by the wrapper's plan
+// (ops/_kernels.py::shared_plan, a fixed rule on shape, item size, batch
+// and the SM count; the launchers check it).
 // - Bound: a shared K is read once, X once, Y written once; 2 * batch *
-//   rows * cols flops.  A fleet's K is small (afiro-class 27 x 51: 5.6 KB;
-//   deg2-class 444 x 757: 1.3 MB) and its X large (10,000 x 52 fp32: 2 MB),
-//   so the bound is bytes for a short row and fp32 FMAs for a long one:
-//   0.9 us at afiro x 10,000, 0.6 us at deg2 x 64, 12 us (K's 40 MB) at
-//   mittelmann-s x 8.  An element's work is tiny, so latency is what
-//   costs: the design reads K once for many elements and keeps many
-//   independent sums in flight, not one element's rows after another's.
-// - Design.  A block owns a tile of RB rows x EB elements (a grid of row
-//   blocks x element blocks, not persistent) and reads the tile's K rows
-//   and X rows into shared memory once: K is read once per element block,
-//   X once per row block.  One producer warp bulk-copies K's rows
-//   (cp.async.bulk; one copy where they lie back to back) while the
-//   consumer warps load X's rows themselves element by element (cp.async),
-//   at any row stride and alignment, so a fleet's (B, n) x goes in as it
-//   is (no padded copy, no second kernel).  Rows of at most kWholeRowBytes
-//   sit whole in one stage; longer rows stream in parts of `chunk` bytes
-//   through a two-stage ring (mbarriers for K, barriers of the consumer
-//   warps for X), one tile of 8 units per block.
-// - The work of a consumer warp is a unit of 4 rows x 4 elements: each
-//   lane keeps 16 partials in registers, loads 4 K and 4 X vectors a step
-//   and makes 16 dot products of them, so each shared-memory load feeds 4
-//   (fp32: 16 FMAs).  A unit's 16 butterflies run transposed: at each level
-//   a lane keeps half its outputs and trades the other half with its
-//   partner, so 16 row sums cost 16 shuffles, not 80.
-// - Rows of at most 16 live vectors (afiro's 13 and 7) run G = 4, 8 or 16
-//   lanes to a unit, 32 / G units to a warp, so lanes do not idle on the
-//   +0.0 partials: the butterfly levels whose partner lanes hold only +0.0
-//   are an add of +0.0 in the lane itself.
-// - The wrapper's plan (ops/_kernels.py::shared_plan: G, RB, EB, chunk,
-//   stages, a fixed rule on shape, batch and the SM count) sizes the tiles
-//   so that blocks spread evenly over the SMs, two to an SM for whole
-//   rows; launch_shared checks it.
+//   rows * cols flops.  So the bound is bytes for a short row or a small
+//   batch and fp32 FMAs for a long row at a large one: 0.9 us at afiro x
+//   10,000 (27 x 51), 0.6 us at deg2 x 64 (444 x 757), 12 us (K's 40 MB)
+//   at mittelmann-s x 8, 0.306 ms (2 * 8000 * 20000 * 64 flops at 67
+//   TFLOP/s) at mittelmann-l x 64.
 // - The order of every sum is the single launch's.  For output (b, r),
-//   lane partial L (L < 32) starts at +0.0 and takes Vec<T>::dot_acc of the
-//   vectors L, L + 32, ... in order, then (if cols % W) lane nvec % 32 the
-//   last partial vector's elements by fma, then the butterfly with offsets
-//   16, 8, 4, 2, 1 over all 32 partials.  The mapping of lanes, units and
-//   tiles changes only who does each operation: a lane holds the partial L
-//   = its lane in the group for every output of its unit, chunks start at
-//   multiples of 32 vectors, and fadd is commutative.  So element b of a
-//   launch equals, bit for bit, a single launch on b; repeats are
-//   bit-identical; no atomics, no tensor cores, no TF32.
+//   partial L (L < 32) starts at +0.0 and takes Vec<T>::dot_acc of the
+//   vectors L, L + 32, ... in order, then (if cols % W) partial nvec % 32
+//   the last partial vector's elements by fma, then the butterfly with
+//   offsets 16, 8, 4, 2, 1 over all 32 partials.  The kernels change only
+//   who computes each partial and who adds each pair of the tree (fadd is
+//   commutative).  So element b of a launch equals, bit for bit, a single
+//   launch on b; repeats are bit-identical; no atomics, no tensor cores,
+//   no TF32, no memory of its own beyond Y.
+//
+// dense_matvec_shared_kernel: whole rows, fp64 rows, and fp32 rows of any
+// length where the plan keeps it (a batch of at most 8, or a K small enough
+// that reading it again costs less than a wave of clusters: afiro x 10,000,
+// deg2 x 64, mittelmann-s x 8-16).
+// - A block owns a tile of RB rows x EB elements (a grid of row blocks x
+//   element blocks, not persistent) and reads the tile's K rows and X rows
+//   into shared memory once: K is read once per element block, X once per
+//   row block.  One producer warp bulk-copies K's rows (cp.async.bulk; one
+//   copy where they lie back to back) while the consumer warps load X's
+//   rows themselves element by element (cp.async), at any row stride and
+//   alignment, so a fleet's (B, n) x goes in as it is (no padded copy, no
+//   second kernel).  Rows of at most kWholeRowBytes sit whole in one
+//   stage; longer rows stream in parts of `chunk` bytes through a
+//   two-stage ring, one tile of 8 units per block.
+// - A consumer warp's work is a unit of 4 rows x 4 elements: lane j holds
+//   partial j of the unit's 16 outputs, loads 4 K and 4 X vectors a step
+//   and makes 16 dot products of them.  A unit's 16 butterflies run
+//   transposed: at each level a lane keeps half its outputs and trades the
+//   other half with its partner, so 16 row sums cost 16 shuffles, not 80.
+// - Rows of at most 16 live vectors (afiro's 13 and 7) run G = 4, 8 or 16
+//   lanes to a unit, 32 / G units to a warp: the butterfly levels whose
+//   partner lanes hold only +0.0 are an add of +0.0 in the lane itself.
+//
+// dense_matvec_shared_kernel_long: the cluster route, fp32 rows longer
+// than kWholeRowBytes where the chunked route would read K again for 60 MB
+// or more (mittelmann-l x 64: K 8000 x 20000 and K' 20000 x 8000).  There
+// the chunked tiles of 16 rows x 8 elements read K (640 MB) from HBM 8
+// times and X from L2 500 times, 7.68 GB a launch at 93% of HBM's rate,
+// and each lane's 16 partials fed 16 FMAs from 8 shared-memory loads.
+// - A cluster of kLongCluster = 4 blocks owns a tile of 3072 outputs, 48
+//   rows x 64 elements (96 x 32 at a batch of at most 32), and splits the
+//   32 partials of every output between its blocks: block q holds partials
+//   8 q, ..., 8 q + 7, which read only the vectors 32 s + 8 q, ..., 32 s +
+//   8 q + 7 of each segment s (32 vectors, 512 bytes) of a row.  So block q
+//   copies bytes [128 q, 128 q + 128) of each segment of the tile's K rows
+//   and X rows: each byte of K enters the SMs once an element block (once
+//   a launch up to B = 64) and X once a 48-row tile, 1.5 GB a launch at
+//   mittelmann-l x 64.  The cluster's four register files hold the tile's
+//   98,304 partials, 96 a lane.  48 rows, not 64: an H100 runs 30 such
+//   clusters at once, and K's 167 tiles are 5.57 waves of 6 where 125 were
+//   4.17 of 5.
+// - Every thread copies its share of each stage (cp.async, 16 bytes; X's
+//   partial vector and X's rows at a stride or base that is not 16-byte
+//   aligned by element) kLongStages - kLongLag stages ahead and arrives on
+//   the stage's barrier when its copies land; each warp arrives on the
+//   stage's empty barrier when it has read it, once a stage of kLongSegs
+//   segments; a slot is refilled once every warp has left it, kLongLag
+//   stages back.  (A producer warp with 128-byte bulk copies took 4x as
+//   long: the copy engine spends some 70 cycles a copy.)
+// - Lane c + 8 g of warp (wr, we) holds partial 8 q + c of rows 12 wr + i
+//   and elements 32 we + 8 g + e (12 x 8 = 96 partials): a segment is 8 X
+//   loads held in registers, then K's vectors of its rows 3 at a time (the
+//   same 128 bytes for the warp's 4 lane groups), each partial taking x, y,
+//   z, w in order.
+// - The tree: each block writes its partials to shared memory ([partial]
+//   [element][row], strides padded so that a warp's 32 stores hit 32
+//   banks), the cluster synchronises, and block q reads the 32 partials of
+//   elements [q EB / 4, (q + 1) EB / 4) from the four blocks' shared memory
+//   (distributed shared memory) and adds them in the butterfly's order.
 
 // Layout contract (checked by the Python wrapper, tpdlp_torch/ops/_kernels.py):
 // M is row-major with a row stride `ld` that is a multiple of 4 elements and
@@ -124,11 +158,14 @@
 // cols.  The kernels allocate nothing and do not synchronise;
 // they run on the caller's stream.
 
+#include <cooperative_groups.h>
+
 #include "pipeline.cuh"
 
 namespace {
 
 using namespace tpdlp;
+namespace cg = cooperative_groups;
 
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = (kConsumerWarps + 1) * kWarp;  // + one producer warp
@@ -326,6 +363,21 @@ template <typename T>
 __device__ __forceinline__ void cp_async(void* dst, const T* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
                    smem_addr(dst)), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+// 16 bytes of global memory to shared memory, asynchronously, through L2
+// alone (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Make the barrier's current phase wait for this thread's cp.async copies
+// issued so far: an arrival (counted in the barrier's init count) that
+// lands when they have.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar)) : "memory");
 }
 
 // Wait until at most N of this thread's committed cp.async groups are
@@ -639,18 +691,328 @@ int launch_shared(const T* M, const T* x, T* y, int rows, int cols,
 }
 
 // ---------------------------------------------------------------------------
+// The shared-K kernel's cluster route: fp32 rows longer than kWholeRowBytes
+// at a batch over 8 (see the batch axis above; the wrapper's plan picks).
+// ---------------------------------------------------------------------------
+
+constexpr int kLongCluster = 4;                    // blocks a cluster
+constexpr int kLongChains = kWarp / kLongCluster;  // partials (and a slice's
+                                                   // vectors) a block
+constexpr int kLongWarps = 8;                      // every warp computes
+constexpr int kLongThreads = kLongWarps * kWarp;
+constexpr int kLaneRows = 12;  // a lane's tile: kLaneRows x 8 elements
+constexpr int kLaneElems = 8;
+constexpr int kRowsHeld = 3;   // K vectors a lane holds at once
+constexpr int kLongSegs = 2;   // segments (32 vectors of a row) a stage
+constexpr int kLongStages = 7;
+constexpr int kLongLag = 2;    // stages a refill waits behind the slowest warp
+constexpr int kSliceBytes = kLongChains * 16;  // a block's part of a segment
+constexpr int kLongOutputs =                   // a tile's rows x elements
+    kLongWarps * kWarp * kLaneRows * kLaneElems / kLongChains;
+
+// One segment of a lane's partials: X's vectors of its 8 elements held in
+// registers, K's of its rows kRowsHeld at a time (one LDS.128 each, the same
+// 128 bytes for the warp's 4 lane groups), then n products a pair (4, or
+// cols % 4 for the partial vector) component by component, so that every
+// partial takes x, y, z, w in order as in Vec<float>::dot_acc.
+__device__ __forceinline__ void lane_tile(
+    float (&acc)[kLaneRows][kLaneElems], const float4* ks, const float4* xs,
+    int n) {
+  float4 xv[kLaneElems];
+#pragma unroll
+  for (int e = 0; e < kLaneElems; ++e) xv[e] = xs[e * kLongChains];
+#pragma unroll
+  for (int h = 0; h < kLaneRows; h += kRowsHeld) {
+    float4 kv[kRowsHeld];
+#pragma unroll
+    for (int i = 0; i < kRowsHeld; ++i) kv[i] = ks[(h + i) * kLongChains];
+#pragma unroll
+    for (int i = 0; i < kRowsHeld; ++i) {
+#pragma unroll
+      for (int e = 0; e < kLaneElems; ++e) {
+        acc[h + i][e] = fmaf(kv[i].x, xv[e].x, acc[h + i][e]);
+      }
+    }
+    if (n > 1) {
+#pragma unroll
+      for (int i = 0; i < kRowsHeld; ++i) {
+#pragma unroll
+        for (int e = 0; e < kLaneElems; ++e) {
+          acc[h + i][e] = fmaf(kv[i].y, xv[e].y, acc[h + i][e]);
+        }
+      }
+    }
+    if (n > 2) {
+#pragma unroll
+      for (int i = 0; i < kRowsHeld; ++i) {
+#pragma unroll
+        for (int e = 0; e < kLaneElems; ++e) {
+          acc[h + i][e] = fmaf(kv[i].z, xv[e].z, acc[h + i][e]);
+        }
+      }
+    }
+    if (n > 3) {
+#pragma unroll
+      for (int i = 0; i < kRowsHeld; ++i) {
+#pragma unroll
+        for (int e = 0; e < kLaneElems; ++e) {
+          acc[h + i][e] = fmaf(kv[i].w, xv[e].w, acc[h + i][e]);
+        }
+      }
+    }
+  }
+}
+
+// The butterfly's tree over 32 partials held in one thread: level OFF adds
+// partial L + OFF to partial L for L < OFF, then the next level.
+template <int OFF>
+__device__ __forceinline__ void fold_levels(float (&t)[kWarp]) {
+#pragma unroll
+  for (int L = 0; L < OFF; ++L) t[L] = t[L] + t[L + OFF];
+  if constexpr (OFF > 1) fold_levels<OFF / 2>(t);
+}
+
+// A cluster owns a tile of RB rows x EB elements (RB EB = kLongOutputs, EB =
+// 32 WE); block q of it holds partials 8 q, ..., 8 q + 7 of every output of
+// the tile, so it copies and reads only bytes [128 q, 128 q + 128) of each
+// 512-byte segment of K's rows and X's.  Warp (wr, we) holds rows kLaneRows
+// wr + i and elements 32 we + 8 g + e of the tile, its lane c + 8 g partial
+// 8 q + c.
+template <int WE>
+__global__ void __cluster_dims__(kLongCluster, 1, 1)
+__launch_bounds__(kLongThreads, 1)
+dense_matvec_shared_kernel_long(const float* __restrict__ M,
+                                const float* __restrict__ x,
+                                float* __restrict__ y, int rows, int cols,
+                                int64_t ld, int batch, int64_t ldx,
+                                int64_t ldy) {
+  constexpr int EB = kWarp * WE;
+  constexpr int RB = kLongOutputs / EB;
+  constexpr int kKBytes = kLongSegs * RB * kSliceBytes;  // a stage's K part
+  constexpr int kStageBytes = kKBytes + kLongSegs * EB * kSliceBytes;
+  constexpr int kPe = RB + 1, kPc = EB * kPe + 1;  // the partials' strides
+  constexpr int kKVecs = kKBytes / 16, kXVecs = kStageBytes / 16 - kKVecs;
+  constexpr int kKCopies = (kKVecs + kLongThreads - 1) / kLongThreads;
+  constexpr int kXCopies = (kXVecs + kLongThreads - 1) / kLongThreads;
+  static_assert(kLongWarps / WE * kLaneRows == RB, "the warps cover a tile");
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kLongStages];
+  __shared__ __align__(8) uint64_t empty[kLongStages];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int elem_blocks = (batch + EB - 1) / EB;
+  const int tile = static_cast<int>(blockIdx.x / kLongCluster);
+  const int r0 = tile / elem_blocks * RB, e0 = tile % elem_blocks * EB;
+  const int nr = min(RB, rows - r0), ne = min(EB, batch - e0);
+  const int nvec = cols / 4, tail = cols % 4;
+  const int nlive = nvec + (tail ? 1 : 0);
+  const int stages = (nlive + kLongSegs * kWarp - 1) / (kLongSegs * kWarp);
+  const bool xvec =
+      ldx % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  float4* const slots = reinterpret_cast<float4*>(ring);
+  if (tid == 0) {
+    for (int s = 0; s < kLongStages; ++s) {
+      mbar_init(&full[s], kLongThreads);
+      mbar_init(&empty[s], kLongWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // This thread's copies of a stage: vector cc of the slices rs = lr + m
+  // kRowStep of the stage's K rows (segment rs / RB, row rs % RB) and of its
+  // X rows,
+  // 16 bytes each, from the pointers of stage 0 advanced 64 vectors a
+  // stage.  A stage whose 64 vectors are all whole, with X's rows 16-byte
+  // aligned, takes them as they are; any other copies only what lies
+  // before cols, X's partial vector and unaligned rows by element.  Every
+  // thread arrives on the stage's barrier once, when its copies land.
+  constexpr int kRowStep = kLongThreads / kLongChains;
+  constexpr int kStageFloats = kLongSegs * kWarp * 4;
+  const int cc = tid % kLongChains, lr = tid / kLongChains;
+  const float* ksrc[kKCopies];
+  const float* xsrc[kXCopies];
+#pragma unroll
+  for (int m = 0; m < kKCopies; ++m) {
+    const int rs = lr + m * kRowStep, r = rs % RB;
+    ksrc[m] = rs < kLongSegs * RB && r < nr
+                  ? M + (r0 + r) * ld +
+                        4 * (rs / RB * kWarp + q * kLongChains + cc)
+                  : nullptr;
+  }
+#pragma unroll
+  for (int m = 0; m < kXCopies; ++m) {
+    const int es = lr + m * kRowStep, e = es % EB;
+    xsrc[m] = es < kLongSegs * EB && e < ne
+                  ? x + (e0 + e) * ldx +
+                        4 * (es / EB * kWarp + q * kLongChains + cc)
+                  : nullptr;
+  }
+  auto load = [&](int k) {
+    float4* st = slots + (k % kLongStages) * (kStageBytes / 16);
+    const int64_t adv = static_cast<int64_t>(k) * kStageFloats;
+    if (xvec && (k + 1) * kLongSegs * kWarp <= nvec) {
+#pragma unroll
+      for (int m = 0; m < kKCopies; ++m) {
+        if (ksrc[m]) {
+          cp_async16(st + (lr + m * kRowStep) * kLongChains + cc,
+                     ksrc[m] + adv);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kXCopies; ++m) {
+        if (xsrc[m]) {
+          cp_async16(st + kKVecs + (lr + m * kRowStep) * kLongChains + cc,
+                     xsrc[m] + adv);
+        }
+      }
+    } else {
+      const int vk = k * kLongSegs * kWarp + q * kLongChains + cc;
+#pragma unroll
+      for (int m = 0; m < kKCopies; ++m) {
+        const int rs = lr + m * kRowStep, v = vk + rs / RB * kWarp;
+        if (ksrc[m] && v < nlive) {
+          cp_async16(st + rs * kLongChains + cc, ksrc[m] + adv);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kXCopies; ++m) {
+        const int es = lr + m * kRowStep, v = vk + es / EB * kWarp;
+        if (!xsrc[m] || v >= nlive) continue;
+        float4* dst = st + kKVecs + es * kLongChains + cc;
+        const float* src = xsrc[m] + adv;
+        if (xvec && v < nvec) {
+          cp_async16(dst, src);
+        } else {
+          for (int t = 0; t < min(4, cols - 4 * v); ++t) {
+            cp_async<float>(reinterpret_cast<float*>(dst) + t, src + t);
+          }
+        }
+      }
+    }
+    cp_async_arrive(&full[k % kLongStages]);
+  };
+
+  // The ring: kLongStages - kLongLag stages in flight ahead of the one
+  // computing; a thread refills a slot once every warp has left the stage
+  // it held, kLongLag stages back, so that no warp waits on one that is a
+  // stage behind it.
+  const int c = lane % kLongChains, g = lane / kLongChains;
+  const int wr = warp / WE, we = warp % WE;
+  const int krow = wr * kLaneRows * kLongChains + c;  // in float4
+  const int xrow = kKVecs + (we * kWarp + g * kLaneElems) * kLongChains + c;
+  float acc[kLaneRows][kLaneElems];
+#pragma unroll
+  for (int i = 0; i < kLaneRows; ++i) {
+#pragma unroll
+    for (int e = 0; e < kLaneElems; ++e) acc[i][e] = 0.0f;
+  }
+  for (int k = 0; k < min(stages, kLongStages - kLongLag); ++k) load(k);
+  for (int k = 0; k < stages; ++k) {
+    const int s = k % kLongStages;
+    mbar_wait(&full[s], (k / kLongStages) & 1);
+    const float4* st = slots + s * (kStageBytes / 16);
+#pragma unroll
+    for (int sg = 0; sg < kLongSegs; ++sg) {
+      const int v = (k * kLongSegs + sg) * kWarp + q * kLongChains + c;
+      const float4* ks = st + sg * RB * kLongChains + krow;
+      const float4* xs = st + sg * EB * kLongChains + xrow;
+      if (v < nvec) {
+        lane_tile(acc, ks, xs, 4);
+      } else if (v < nlive) {
+        lane_tile(acc, ks, xs, tail);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    const int next = k + kLongStages - kLongLag;
+    if (next < stages) {
+      if (k >= kLongLag) {
+        mbar_wait(&empty[next % kLongStages],
+                  ((k - kLongLag) / kLongStages) & 1);
+      }
+      load(next);
+    }
+  }
+
+  // The partials meet.  Each lane's go to this block's buffer over the
+  // ring (every copy has landed), as [partial][element][row] at strides kPc
+  // and kPe, padded so that a warp's 32 stores hit 32 banks.
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < kLaneRows; ++i) {
+#pragma unroll
+    for (int e = 0; e < kLaneElems; ++e) {
+      part[c * kPc + (we * kWarp + g * kLaneElems + e) * kPe +
+           wr * kLaneRows + i] = acc[i][e];
+    }
+  }
+  cluster.sync();
+  // Block q ends the outputs of elements [q EB / 4, (q + 1) EB / 4) of the
+  // tile, every row: output (r, e)'s partial L is partial L % 8 of block
+  // L / 8, summed in the butterfly's tree (offsets 16, 8, 4, 2, 1).  Each
+  // thread's kEnds outputs read their partials all at once.
+  constexpr int kEnds = kLongOutputs / kLongCluster / kLongThreads;
+  static_assert(kEnds * kLongCluster * kLongThreads == kLongOutputs,
+                "a block's outputs split evenly over its threads");
+  float sum[kEnds][kWarp];
+#pragma unroll
+  for (int j = 0; j < kEnds; ++j) {
+    const int o = tid + j * kLongThreads;
+    const int e = q * (EB / kLongCluster) + o / RB, r = o % RB;
+#pragma unroll
+    for (int L = 0; L < kWarp; ++L) {
+      sum[j][L] = cluster.map_shared_rank(part, L / kLongChains)
+          [(L % kLongChains) * kPc + e * kPe + r];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kEnds; ++j) {
+    const int o = tid + j * kLongThreads;
+    const int e = q * (EB / kLongCluster) + o / RB, r = o % RB;
+    fold_levels<kWarp / 2>(sum[j]);
+    if (r < nr && e < ne) y[(e0 + e) * ldy + r0 + r] = sum[j][0];
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+// Launches kLongCluster blocks a tile of RB x EB = kLongOutputs outputs
+// (EB = 32 WE), with the ring of kLongStages stages that the partials'
+// buffer reuses.
+template <int WE>
+int launch_shared_long_we(const float* M, const float* x, float* y, int rows,
+                          int cols, int64_t ld, int batch, int64_t ldx,
+                          int64_t ldy, void* stream) {
+  constexpr int EB = kWarp * WE, RB = kLongOutputs / EB;
+  constexpr int smem = kLongStages * (RB + EB) * kLongSegs * kSliceBytes;
+  static_assert(smem <= kMaxSmem, "the ring fits a block");
+  static_assert(kLongChains * (EB * (RB + 1) + 1) * 4 <= smem,
+                "the partials' buffer fits the ring");
+  const int64_t tiles = static_cast<int64_t>((rows + RB - 1) / RB) *
+                        ((batch + EB - 1) / EB);
+  if (kLongCluster * tiles >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static int smem_done[kMaxDevices] = {};
+  const cudaError_t err = allow_dynamic_smem(
+      dense_matvec_shared_kernel_long<WE>, smem, smem_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_matvec_shared_kernel_long<WE><<<
+      static_cast<unsigned>(kLongCluster * tiles), kLongThreads, smem,
+      static_cast<cudaStream_t>(stream)>>>(M, x, y, rows, cols, ld, batch,
+                                           ldx, ldy);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // The stack kernel (stride_m != 0; see the batch axis above).
 // ---------------------------------------------------------------------------
 
 constexpr int kStackMaxSlots = 16;  // the stage barriers a block has
-
-// Make the barrier's current phase wait for this thread's cp.async copies
-// issued so far: an arrival (counted in the barrier's init count) that
-// lands when they have.
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(smem_addr(bar)) : "memory");
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -846,6 +1208,29 @@ int tpdlp_dense_matvec_batch_f64(const double* M, const double* x, double* y,
   }
   return launch_stack<double>(M, x, y, rows, cols, ld, batch, stride_m, ldx,
                               ldy, RB, chunk, stages, stream);
+}
+
+// The same for a shared fp32 K on the cluster route
+// (dense_matvec_shared_kernel_long): tiles of EB = 32 or 64 elements, the
+// rest fixed by the kernel's constants; rows longer than kWholeRowBytes.
+int tpdlp_dense_matvec_shared_long_f32(const float* M, const float* x,
+                                       float* y, int rows, int cols,
+                                       int64_t ld, int batch, int64_t ldx,
+                                       int64_t ldy, int EB, void* stream) {
+  const int64_t row_bytes = ((static_cast<int64_t>(cols) + 3) & ~3) * 4;
+  if (rows <= 0 || batch <= 0) return 0;
+  if (row_bytes <= kWholeRowBytes || row_bytes >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (EB == kWarp) {
+    return launch_shared_long_we<1>(M, x, y, rows, cols, ld, batch, ldx, ldy,
+                                    stream);
+  }
+  if (EB == 2 * kWarp) {
+    return launch_shared_long_we<2>(M, x, y, rows, cols, ld, batch, ldx, ldy,
+                                    stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* tpdlp_cuda_error_string(int code) {

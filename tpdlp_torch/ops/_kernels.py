@@ -17,7 +17,10 @@ no fallback.
 launches, nowhere else), so a run can show that its main path went through
 the kernels.  The batched wrappers (`*_batch`: one launch computes
 Y[b] = M_b X[b] for every element b of a fleet, the batch axis that the
-JAX package's vmap gives pallas_call) count under their own names.
+JAX package's vmap gives pallas_call) count under their own names.  One
+name counts a route, not a kernel of its own: `dense_matvec_shared_long`
+is the part of `dense_matvec_batch`'s launches that took the shared-K
+kernel's cluster route (`shared_plan`), so it is never added to the rest.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ ROW_ALIGN = 4
 
 launches = {"dense_matvec": 0, "band_matvec": 0, "csr_matvec": 0,
             "dense_matvec_batch": 0, "band_matvec_batch": 0,
-            "csr_matvec_batch": 0}
+            "csr_matvec_batch": 0, "dense_matvec_shared_long": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -166,6 +169,10 @@ def _load():
                     fn = getattr(lib, f"tpdlp_{kind}_matvec_batch_{t}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
+            lib.tpdlp_dense_matvec_shared_long_f32.argtypes = [
+                ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, i64,
+                ctypes.c_int, i64, i64, ctypes.c_int, ptr]
+            lib.tpdlp_dense_matvec_shared_long_f32.restype = ctypes.c_int
             for t in ("f32", "f64"):
                 fn = getattr(lib, f"tpdlp_csr_matvec_ring_batch_{t}")
                 fn.argtypes = batch_args["csr"]
@@ -617,13 +624,23 @@ _WHOLE_TILE_SMEM = 113 * 1024
 _CHUNK_BYTES = 2048
 _CHUNK_STAGES = 2
 
+#: Its cluster route (dense_matvec_shared_kernel_long: kLongCluster,
+#: kLongOutputs): fp32 rows longer than _WHOLE_ROW_BYTES where the chunked
+#: route would read K again, after its first pass, for at least
+#: _LONG_MIN_REREAD bytes; clusters of _LONG_CLUSTER blocks own tiles of
+#: _LONG_OUTPUTS outputs (the launcher fixes the rest).
+_LONG_MIN_REREAD = 60_000_000
+_LONG_CLUSTER = 4
+_LONG_OUTPUTS = 3072
+
 
 class SharedPlan(NamedTuple):
     """A launch of the shared-K kernel: G lanes a unit of 4 rows x 4
     elements, tiles of RB rows x EB elements (a block each, row blocks x
     element blocks of them), `chunk` bytes of a row a stage (the whole row
     when `stages` is 1), `stages` stages, `smem` bytes of shared memory a
-    block."""
+    block.  On the cluster route `cluster` blocks share a tile and G,
+    chunk, stages and smem are 0: its launcher fixes them."""
     G: int
     RB: int
     EB: int
@@ -632,6 +649,7 @@ class SharedPlan(NamedTuple):
     row_blocks: int
     elem_blocks: int
     smem: int
+    cluster: int
 
 
 @functools.lru_cache(maxsize=1024)
@@ -647,32 +665,73 @@ def shared_plan(rows: int, cols: int, batch: int, item: int,
     spread over two blocks an SM; the block's unit rectangle near square
     (each byte of a tile's K and X rows feeds as many outputs), its K part
     at most half the tile's memory, then evened out so the row and element
-    blocks come out the same size.  Longer rows: 8 units a block, one a
-    warp, 4 x 2 units (16 rows x 8 elements) or, for at most 4 elements,
-    8 x 1, K read once per 8 elements."""
+    blocks come out the same size.
+
+    Longer fp32 rows where the chunked route below would read K again for
+    at least _LONG_MIN_REREAD bytes ((ceil(batch / 8) - 1) passes): the
+    cluster route.  It reads K once but costs at least a wave of its
+    tiles, 12 us plus 0.69 us a 512-byte segment of a row on an H100; so
+    it pays once the chunked route's passes cost more.  Measured
+    (chip_smoke.py's shared_routes): mittelmann-s (40 MB) x 9-16 is faster
+    chunked (0.031-0.039 ms against 0.040-0.044), x 24-32 on the cluster
+    route (0.041-0.045 against 0.048-0.062), so the threshold lies between
+    40 and 80 MB; mittelmann-l (640 MB) x 9 is faster on it (0.349 against
+    0.434), x 8 chunked (0.226 against 0.348).
+
+    A cluster of 4 blocks owns a tile of 3072 outputs, 48 rows x 64
+    elements (96 x 32 at a batch of at most 32: twice as fast there), and
+    block q of it the partials 8 q, ..., 8 q + 7 of every output: bytes
+    [128 q, 128 q + 128) of each 512-byte segment of K's and X's rows, 2
+    segments a stage, 7 stages.  So each byte of K enters the SMs once an
+    element block and each byte of X once a row block: at mittelmann-l x 64
+    (8000 x 20000) 0.64 GB of K and 167 x 5.12 MB = 0.855 GB of X, 1.495 GB
+    from L2 into the SMs a launch (K' 0.64 + 417 x 2.048 MB = 1.494 GB),
+    against the 7.68 GB of the chunked tiles (K 8 times, X 500 times).  At
+    any batch up to 64 K enters once, and X at most EB / RB of K's bytes
+    with its rows rounded up to whole tiles (4/3 at 48 x 64, 1/3 at 96 x
+    32).  48 rows, not 64: 30 clusters of 4 run at once on an H100, and K's
+    167 tiles are 5.57 waves of 6 where 125 were 4.17 of 5.
+
+    Longer rows otherwise (fp64, a batch of at most 8, or a small K): 8
+    units a block, one a warp, 4 x 2 units (16 rows x 8 elements) or, for
+    at most 4 elements, 8 x 1, K read once per 8 elements."""
     row_bytes = -(-cols // 4) * 4 * item
+    if row_bytes > _WHOLE_ROW_BYTES:
+        reread = (-(-batch // 8) - 1) * rows * row_bytes
+        if item == 4 and reread >= _LONG_MIN_REREAD:
+            return _cluster_plan(rows, batch, 32 if batch <= 32 else 64)
+        return _chunk_plan(rows, batch)
     nlive = -(-cols // (16 // item))  # 16-byte vectors a row, the last partial
     units_r, units_e = -(-rows // 4), -(-batch // 4)
-    if row_bytes > _WHOLE_ROW_BYTES:
-        G, ue = 32, 2 if batch > 4 else 1
-        ur = 8 // ue
-        chunk, stages = _CHUNK_BYTES, _CHUNK_STAGES
-    else:
-        G = min(32, max(4, 1 << max(nlive - 1, 0).bit_length()))
-        slots = 8 * (32 // G)
-        fit = _WHOLE_TILE_SMEM // max(row_bytes, 16)  # tile rows, K and X
-        target = -(-max(slots, -(-units_r * units_e // (2 * sms)))
-                   // slots) * slots
-        side = 1 << math.isqrt(target - 1).bit_length()  # >= sqrt(target)
-        ur = min(units_r, max(1, fit // 8), side)
-        ur = -(-units_r // -(-units_r // ur))
-        ue = min(units_e, -(-target // ur), max(1, (fit - 4 * ur) // 4))
-        ue = -(-units_e // -(-units_e // ue))
-        chunk, stages = max(row_bytes, 16), 1
+    G = min(32, max(4, 1 << max(nlive - 1, 0).bit_length()))
+    slots = 8 * (32 // G)
+    fit = _WHOLE_TILE_SMEM // max(row_bytes, 16)  # tile rows, K and X
+    target = -(-max(slots, -(-units_r * units_e // (2 * sms)))
+               // slots) * slots
+    side = 1 << math.isqrt(target - 1).bit_length()  # >= sqrt(target)
+    ur = min(units_r, max(1, fit // 8), side)
+    ur = -(-units_r // -(-units_r // ur))
+    ue = min(units_e, -(-target // ur), max(1, (fit - 4 * ur) // 4))
+    ue = -(-units_e // -(-units_e // ue))
     RB, EB = 4 * ur, 4 * ue
-    return SharedPlan(G, RB, EB, chunk, stages, -(-rows // RB),
+    return SharedPlan(G, RB, EB, max(row_bytes, 16), 1, -(-rows // RB),
+                      -(-batch // EB), (RB + EB) * row_bytes, 1)
+
+
+def _chunk_plan(rows: int, batch: int) -> SharedPlan:
+    """shared_plan's chunked route for rows longer than _WHOLE_ROW_BYTES."""
+    EB = 8 if batch > 4 else 4
+    RB = 128 // EB
+    return SharedPlan(32, RB, EB, _CHUNK_BYTES, _CHUNK_STAGES, -(-rows // RB),
                       -(-batch // EB),
-                      stages * (RB + EB) * min(row_bytes, chunk))
+                      _CHUNK_STAGES * (RB + EB) * _CHUNK_BYTES, 1)
+
+
+def _cluster_plan(rows: int, batch: int, EB: int) -> SharedPlan:
+    """shared_plan's cluster route, tiles of EB (32 or 64) elements."""
+    RB = _LONG_OUTPUTS // EB
+    return SharedPlan(0, RB, EB, 0, 0, -(-rows // RB), -(-batch // EB), 0,
+                      _LONG_CLUSTER)
 
 
 #: The stack kernel's stages (csrc/dense_matvec.cu:
@@ -783,22 +842,38 @@ def dense_matvec_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     if B == 0 or rows == 0:
         return Y
     sms = _sm_count(M.device)
-    if stride_m == 0:
-        plan = shared_plan(rows, cols, B, M.element_size(), sms)[:5]
-    else:
-        p = stack_plan(rows, cols, B, M.element_size(), sms)
-        plan = (0, p.RB, 1, p.chunk, p.slots)
+    plan = (shared_plan(rows, cols, B, M.element_size(), sms) if stride_m == 0
+            else stack_plan(rows, cols, B, M.element_size(), sms))
     Xp = X if X.stride(-1) == 1 or cols <= 1 else X.contiguous()
+    _launch_dense_batch(M, Xp, Y, ld, stride_m, plan)
+    return Y
+
+
+def _launch_dense_batch(M, X, Y, ld, stride_m, plan):
+    """One launch of dense_matvec_batch by `plan`: a SharedPlan where
+    stride_m is 0, else a StackPlan (X's rows contiguous)."""
+    rows, cols = M.shape[-2:]
+    B = X.shape[0]
     lib = _load()
-    fn = (lib.tpdlp_dense_matvec_batch_f32 if M.dtype == torch.float32
-          else lib.tpdlp_dense_matvec_batch_f64)
     stream = torch.cuda.current_stream(M.device).cuda_stream
+    head = (M.data_ptr(), X.data_ptr(), Y.data_ptr(), rows, cols, ld, B)
+    long_route = stride_m == 0 and plan.cluster > 1
     with torch.cuda.device(M.device):
-        code = fn(M.data_ptr(), Xp.data_ptr(), Y.data_ptr(), rows, cols, ld,
-                  B, stride_m, Xp.stride(0), rows, *plan, stream)
+        if long_route:
+            code = lib.tpdlp_dense_matvec_shared_long_f32(
+                *head, X.stride(0), rows, plan.EB, stream)
+        else:
+            fn = (lib.tpdlp_dense_matvec_batch_f32
+                  if M.dtype == torch.float32
+                  else lib.tpdlp_dense_matvec_batch_f64)
+            tail = ((plan.G, plan.RB, plan.EB, plan.chunk, plan.stages)
+                    if stride_m == 0
+                    else (0, plan.RB, 1, plan.chunk, plan.slots))
+            code = fn(*head, stride_m, X.stride(0), rows, *tail, stream)
     _check(code, "dense_matvec_batch launch")
     launches["dense_matvec_batch"] += 1
-    return Y
+    if long_route:
+        launches["dense_matvec_shared_long"] += 1
 
 
 def _band_windows_batch(starts, X, n, WB):
