@@ -9,12 +9,20 @@ Each seed is one run of the cell through `harness.run_cell`, as
 `benchmark.run` makes it, with a window of `--seconds`; it prints the
 run's `correct` and the numbers its check compared.  A seed of `--seeds`
 runs the program as it is: a sound run's reading (the limit's lower end).
-A seed of `--control-seeds` runs it under `bf16_operator()`: the program
-is handed K rounded to bfloat16, the precision below the configuration's
-float32 (the step that would tempt a later change: half of K's bytes),
-and every product is then exact on the rounded values, while the check
+A seed of `--control-seeds` runs it under `perturbed_operator(seed)`: the
+program is handed K with every stored value multiplied by (1 + delta),
+delta uniform on [-2**-8, 2**-8] and drawn from the seed, while the check
 judges the answers against the LP as generated: the control's reading
 (the limit's upper end), which has to come out not `correct`.
+
+The perturbation is the backward error of a K product in bfloat16, the
+precision below the configuration's float32 (the step that would tempt a
+later change: half of K's bytes): a product of K and x rounded to
+bfloat16 and summed in float32 is (K + dK) x exactly, with |dK| within a
+small multiple of 2**-8 |K|.  Rounding K's values alone would model it on
+general values, but leaves 0, +-1 and small integers as they are, so on a
+transport, assignment or set-covering LP it would hand the program the LP
+it is judged by.
 """
 
 from __future__ import annotations
@@ -32,35 +40,45 @@ from benchmark import harness
 from benchmark import spec as S
 
 
-def round_bf16(values: np.ndarray) -> np.ndarray:
-    """`values` rounded to the nearest bfloat16 (ties to even), as
-    float64."""
-    bits = np.asarray(values, dtype=np.float32).view(np.uint32)
-    bits = bits.astype(np.uint64)
-    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
-    return bits.astype(np.uint32).view(np.float32).astype(np.float64)
+#: Keeps the control's random stream apart from the generator's, which
+#: takes the bare seed, and the traffic's (`traffic.STREAM`).
+STREAM = 2
+#: bfloat16's unit roundoff: the largest relative error of one rounding.
+UNIT_ROUNDOFF = 2.0 ** -8
+
+
+def perturbed(K, seed: int):
+    """A copy of the sparse matrix `K` with every stored value multiplied
+    by (1 + delta), delta drawn from `seed` uniformly on [-UNIT_ROUNDOFF,
+    UNIT_ROUNDOFF]; the pattern is K's, and K is left as it is."""
+    rng = np.random.default_rng([seed, STREAM])
+    low = K.copy()
+    low.data = K.data * (1.0 + rng.uniform(-UNIT_ROUNDOFF, UNIT_ROUNDOFF,
+                                           K.data.shape))
+    return low
 
 
 @contextlib.contextmanager
-def bf16_operator():
-    """Within it, every request hands the program its LPs with K's values
-    rounded to bfloat16 (rounded once per K)."""
+def perturbed_operator(seed: int):
+    """Within it, every request hands the program its LPs with K replaced
+    by `perturbed(K, seed)` (drawn once per K)."""
     from benchmark import program
 
     run = program.Program.run
-    rounded = {}
+    drawn = {}
 
-    def run_rounded(self, lps, seed):
-        K = lps[0].K
-        if id(K) not in rounded:
-            low = K.copy()
-            low.data = round_bf16(low.data)
-            rounded.clear()
-            rounded[id(K)] = (K, low)  # K kept, so its id stays its own
-        low = rounded[id(K)][1]
+    def low_of(K):
+        if id(K) not in drawn:
+            drawn.clear()
+            drawn[id(K)] = (K, perturbed(K, seed))  # K kept: its id stays
+        return drawn[id(K)][1]
+
+    def run_perturbed(self, lps, seed):
+        # `seed` here is the solver's, passed on; K's draw took the run's.
+        low = low_of(lps[0].K)
         return run(self, [dataclasses.replace(p, K=low) for p in lps], seed)
 
-    program.Program.run = run_rounded
+    program.Program.run = run_perturbed
     try:
         yield
     finally:
@@ -69,9 +87,9 @@ def bf16_operator():
 
 def reading(cell: S.Cell, seed: int, seconds: float, control: bool,
             device) -> dict:
-    """One run of `cell` from `seed`, under `bf16_operator()` where
-    `control`: its verdict and the numbers its check compared."""
-    with bf16_operator() if control else contextlib.nullcontext():
+    """One run of `cell` from `seed`, under `perturbed_operator(seed)`
+    where `control`: its verdict and the numbers its check compared."""
+    with perturbed_operator(seed) if control else contextlib.nullcontext():
         result = harness.run_cell(cell, seed, seconds, False, device,
                                   time.perf_counter())
     return {"correct": result["correct"], "attempted": result["attempted"],

@@ -1,19 +1,22 @@
 """The correctness check against faults of the timed path: a run of a tiny
 cell on the CPU, past the harness's look for a card, with the program
 broken underneath, reads `correct` false; the sound program reads true;
-and the control (the operator in bfloat16) reads `correct` false where
-the program reads true."""
+and the control (K's values each moved by bfloat16's backward error, a
+relative delta drawn uniformly from [-2**-8, 2**-8]) reads `correct` false
+where the program reads true: on the random tiny LP, and on a transport LP
+whose K, all ones, rounding to bfloat16 would leave as it is."""
 
 import dataclasses
 import time
 
 import numpy as np
 import pytest
+import torch
 
 import tpdlp_torch
 from benchmark import control, harness, spec
 from benchmark.reference import Reference
-from benchmark.tests.tiny import TINY_LIMIT, tiny_root
+from benchmark.tests.tiny import TINY_LIMIT, TRANSPORT_INSTANCE, tiny_root
 from tpdlp_torch.solver import step
 
 
@@ -82,11 +85,31 @@ def test_the_control_fails_where_the_program_passes(tmp_path):
     assert not low["correct"] and low["kkt_rel"] > TINY_LIMIT
 
 
-def test_round_bf16():
-    v = np.array([1.0, 1.0 + 2**-9, 1.0 + 3 * 2**-9, -3.14159265, 0.0])
-    r = control.round_bf16(v)
-    assert r.tolist()[:3] == [1.0, 1.0, 1.0 + 2**-7]
-    assert abs(r[3] + 3.140625) == 0 and r[4] == 0.0
+def _transport_cell(tmp_path):
+    return spec.load_cell("tiny.mix", tiny_root(
+        tmp_path, generator="transport", instance=TRANSPORT_INSTANCE))
+
+
+def test_the_control_fails_on_a_transport_lp(tmp_path):
+    # CSR, one LP a request: the path a transport cell would take.
+    cell = _transport_cell(tmp_path)
+    sound = control.reading(cell, 11, 0.3, False, "cpu")
+    low = control.reading(cell, 11, 0.3, True, "cpu")
+    assert sound["correct"] and sound["not_solved"] == 0
+    assert sound["kkt_rel"] <= TINY_LIMIT
+    assert not low["correct"] and low["kkt_rel"] > TINY_LIMIT
+
+
+def test_rounding_to_bfloat16_leaves_a_transport_k_as_it_is(tmp_path):
+    # Why the control moves K's values instead of rounding them: every
+    # value of this K is exact in bfloat16, so rounding would hand the
+    # program the LP it is judged by.
+    cell = _transport_cell(tmp_path)
+    K = spec.generator("transport", cell.root).build(
+        TRANSPORT_INSTANCE, 11).K
+    rounded = torch.from_numpy(K.data).to(torch.bfloat16).double().numpy()
+    assert K.nnz == 2 * 64 * 64
+    assert np.array_equal(rounded, K.data)
 
 
 def test_reference_kkt_of_a_known_point():

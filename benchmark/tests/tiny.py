@@ -1,6 +1,7 @@
 """A copy of the benchmark with one more cell, `tiny.mix`, added the way a
 later change adds one: new files and new entries, no existing file edited.
-Small enough to run on the CPU."""
+Small enough to run on the CPU.  Its LP is the frozen generator's, or a
+new generator file of this directory (`transport.py`) copied in."""
 
 from __future__ import annotations
 
@@ -12,13 +13,18 @@ from benchmark import spec
 
 TINY_INSTANCE = {"n": 300, "m_ineq": 90, "m_eq": 30, "density": 0.05,
                  "bounds": "box"}
+#: The transport LP of `transport.py`: 8 x 8 pixels, 4,096 columns.
+TRANSPORT_INSTANCE = {"resolution": 8}
 TINY_LIMIT = 3e-4
 
 
 def tiny_root(tmp: Path, *, matrix_format="sparse", entry="solve",
-              batch=1, max_kkt=20000) -> Path:
+              batch=1, max_kkt=20000, generator="feasible_lp",
+              instance=TINY_INSTANCE) -> Path:
     """A checkout's benchmark files under `tmp` plus the cell `tiny.mix`
-    (a new configuration, traffic mix, cell file and metric)."""
+    (a new configuration, traffic mix, cell file and metric, and the
+    generator file `generator`.py of this directory where the benchmark
+    has none of that name)."""
     root = tmp / "checkout"
     root.mkdir(parents=True)
     shutil.copy(spec.ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
@@ -26,7 +32,10 @@ def tiny_root(tmp: Path, *, matrix_format="sparse", entry="solve",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cfg = json.loads((root / bench["configs"][0]["file"]).read_text())
-    cfg.update(name="tiny", instance=TINY_INSTANCE,
+    gen = root / "benchmark/generators" / f"{generator}.py"
+    if not gen.exists():
+        shutil.copy(Path(__file__).with_name(gen.name), gen)
+    cfg.update(name="tiny", generator=generator, instance=instance,
                matrix_format=matrix_format)
     cfg["solver"]["max_kkt"] = max_kkt
     _write(root / "benchmark/configs/tiny.json", cfg)
